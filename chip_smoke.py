@@ -15,7 +15,8 @@ Phases, each printing one JSON object per line:
                projections, NHWC convs): max abs error / max |plain|
                within a stated bound; median times of kernel, plain version
                and one library call (SDPA, cuDNN conv, var_mean); the
-               bound; launches per batch-1 call
+               bound; launches per batch-1 call. K2a also at the batch-8
+               call's shapes (its slabs and cluster size depend on B)
   4. pipeline  UnifiedPipeline on full-width SD1.5 (random weights from a
                seed): 512x512, 20 steps k_dpmpp_2m, CFG 7.5 (parallel),
                bf16, chunk_steps=10 with a stop_event, uint8 on the device.
@@ -196,6 +197,13 @@ CONV_SHAPES = [
     ("vae_512_256_128", 1, 512, 256, 128, 1e-6, 1),
     ("vae_512_128_128", 1, 512, 128, 128, 1e-6, 5),
 ]
+# K2a alone at two shapes of a batch-8 call, where its launch differs from
+# batch 1's: (name, B, H=W, C, eps, launches per batch-8 call). The UNet
+# runs 16 rows (8 images x 2 CFG rows), the VAE 8.
+GN_BATCH8_SHAPES = [
+    ("b8_unet_64_320", 16, 64, 320, 1e-5, 7 * STEPS),
+    ("b8_vae_512_128", 8, 512, 128, 1e-6, 5),
+]
 
 # Bounds: the least time the card could take for a kernel's work, the
 # larger of its operations over the peak rate for their type and its bytes
@@ -277,6 +285,28 @@ def phase_kernels():
             failed.append(f"{kernel} {row['shape']}: error "
                           f"{row['max_abs_err_rel']}")
 
+    def record_stats(name, b, hw, c, eps, launches, **extra):
+        """K2a's row on a fresh x [b,hw,hw,c] and GroupNorm scale and bias;
+        returns those inputs, K2a's (a, b) and the plain version's."""
+        # per-channel offsets exercise the statistics' cancellation
+        x = (torch.randn((b, hw, hw, c), generator=gen, device=dev) +
+             torch.randn((c,), generator=gen, device=dev) * 2.0).to(bf)
+        gs = rand(c, dtype=torch.float32, scale=0.1, shift=1.0)
+        gb = rand(c, dtype=torch.float32, scale=0.1)
+        a, bb = FC.gn_affine(x, gs, gb, 32, eps)
+        a_ref, b_ref = FC.gn_affine_plain(x, gs, gb, 32, eps)
+        errs = [_errors(a, a_ref), _errors(bb, b_ref)]
+        xg = x.view(b, -1, 32, c // 32)
+        record("gn_stats", _row(
+            name, [b, hw, hw, c], launches, (max(e[0] for e in errs),
+                                             max(e[1] for e in errs)),
+            F32_STATS_BOUND,
+            lambda: FC.gn_affine(x, gs, gb, 32, eps),
+            lambda: FC.gn_affine_plain(x, gs, gb, 32, eps),
+            lambda: torch.var_mean(xg, dim=(1, 3)),
+            stats_bound(b, b * hw * hw, c)), **extra)
+        return x, gs, gb, (a, bb), (a_ref, b_ref)
+
     for name, b, h, tq, tk, d, launches in ATTN_SHAPES:
         # as the models call K1: attention() on [B,T,H,D] projections, a
         # linear layer's [B,T,H*D] output reshaped (token stride H*D, head
@@ -299,26 +329,10 @@ def phase_kernels():
     for name, b, hw, c, co, eps, launches in CONV_SHAPES:
         dims = [b, hw, hw, c, co]
         m = b * hw * hw
-        # per-channel offsets exercise the statistics' cancellation
-        x = (torch.randn((b, hw, hw, c), generator=gen, device=dev) +
-             torch.randn((c,), generator=gen, device=dev) * 2.0).to(bf)
-        gs = rand(c, dtype=torch.float32, scale=0.1, shift=1.0)
-        gb = rand(c, dtype=torch.float32, scale=0.1)
+        x, gs, gb, (a, bb), (a_ref, b_ref) = record_stats(
+            name, b, hw, c, eps, launches)
         w = rand(3, 3, c, co, scale=(9 * c) ** -0.5)
         cb = rand(co, dtype=torch.float32, scale=0.1)
-
-        a, bb = FC.gn_affine(x, gs, gb, 32, eps)
-        a_ref, b_ref = FC.gn_affine_plain(x, gs, gb, 32, eps)
-        errs = [_errors(a, a_ref), _errors(bb, b_ref)]
-        xg = x.view(b, -1, 32, c // 32)
-        record("gn_stats", _row(
-            name, dims, launches, (max(e[0] for e in errs),
-                                   max(e[1] for e in errs)),
-            F32_STATS_BOUND,
-            lambda: FC.gn_affine(x, gs, gb, 32, eps),
-            lambda: FC.gn_affine_plain(x, gs, gb, 32, eps),
-            lambda: torch.var_mean(xg, dim=(1, 3)),
-            stats_bound(b, m, c)))
 
         # cuDNN's conv on the activated input, both channels_last
         y = F.silu(x.float() * a_ref[:, None, None] +
@@ -345,7 +359,11 @@ def phase_kernels():
                 x, gs, gb, w, cb, groups=32, eps=eps)))
         if not results["gn_silu_conv3x3"][-1]["chain_err_rel"] <= BF16_BOUND:
             failed.append(f"gn_silu_conv3x3 chain {name}")
-        del x, xg, a, bb, a_ref, b_ref, w, y, w_cl, chain, chain_ref
+        del x, a, bb, a_ref, b_ref, w, y, w_cl, chain, chain_ref
+    for name, b, hw, c, eps, launches in GN_BATCH8_SHAPES:
+        # not in a batch-1 call: no launches of its per-call sums
+        record_stats(name, b, hw, c, eps, 0,
+                     launches_per_batch8_call=launches)
     torch.cuda.synchronize()
     if failed:
         raise AssertionError("kernels disagree with their plain versions: "
@@ -558,13 +576,19 @@ def phase_grpc(manager):
         server.stop(0).wait()
 
 
+# kernel-name substrings of csrc/'s kernels (and of earlier trees' K2a)
+PORT_KERNEL_NAMES = ("flash", "gn_stats", "gn_partial", "gn_finalize",
+                     "gn_silu_conv3x3")
+
+
 def phase_profile(out_dir: str = "out"):
     """(``--profile`` only.) The chip_smoke configuration's batch-1 call:
     host-clock latency with the kernels against the plain versions swapped
     in (order plain, kernel, kernel, plain; median of 3 calls each), then a
     torch.profiler trace of one call with the kernels, its device time by
     kernel written to ``<out_dir>/profile_b1.txt``, beside the host
-    numbers (``_call``) of that call and of one untraced call."""
+    numbers (``_call``) of that call and of one untraced call, its count
+    of device operations, its copy kernels and csrc/'s kernels."""
     import os
 
     import torch
@@ -627,6 +651,12 @@ def phase_profile(out_dir: str = "out"):
         slot[0] += e.time_range.elapsed_us() / 1e3
         slot[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    # device copies (casts, layout copies, memcpy) and the kernels of
+    # csrc/ by name, with their counts in the call
+    copies = [sum(v[i] for n, v in by_name.items() if "copy" in n.lower())
+              for i in (0, 1)]
+    port = {n[:90]: v for n, v in by_name.items()
+            if any(k in n for k in PORT_KERNEL_NAMES)}
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "profile_b1.txt"), "w") as fh:
         fh.write(f"wall {wall:.4f} s, device busy {busy_us / 1e6:.4f} s\n")
@@ -634,7 +664,9 @@ def phase_profile(out_dir: str = "out"):
             fh.write(f"{msec:10.3f} ms {n:6d}  {name}\n")
     emit({"phase": "profile", "wall_s": wall, "device_busy_s": busy_us / 1e6,
           "host_untraced": untraced, "host_traced": traced,
-          "host_waits_on_card": waits,
+          "host_waits_on_card": waits, "device_ops": len(events),
+          "copies": {"ms": copies[0], "count": copies[1]},
+          "port_kernels": port,
           "top_kernels_ms": [[name[:90], msec, n]
                              for name, (msec, n) in top[:20]]})
 

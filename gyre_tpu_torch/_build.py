@@ -40,7 +40,7 @@ SIGNATURES = {
         "gyre_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  *[_L] * 12, _F, _P]},
     "gn_stats": {
-        "gyre_gn_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+        "gyre_gn_stats": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                           _P]},
     "gn_silu_conv3x3": {
         "gyre_gn_silu_conv3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

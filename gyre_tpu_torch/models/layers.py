@@ -92,7 +92,8 @@ def gn_silu_conv3x3(norm_p: Params, conv_p: Params, x, groups: int,
                     eps: float):
     """GroupNorm -> SiLU -> 3x3 conv of a resnet block, through the fused
     kernels K2a + K2b on the card (ops/fused_norm_conv.py); conv_p["w"]
-    is HWIO."""
+    is HWIO, and the norm's scale and bias and the conv's bias are the f32
+    leaves the kernels read (fused_norm_spec, fused_conv_spec)."""
     return fused_norm_conv.gn_silu_conv3x3(
         x.contiguous(), norm_p["scale"], norm_p["bias"], conv_p["w"],
         conv_p["b"], groups=groups, eps=eps)
@@ -133,12 +134,16 @@ def upsample_nearest_2x(x):
 class Spec:
     """A parameter leaf. kind: "linear" (out, in) | "conv" OIHW |
     "conv_hwio" HWIO | "bias" (zeros) | "norm_scale" (ones) | "normal"
-    (embeddings, N(0, std^2))."""
+    (embeddings, N(0, std^2)). f32: the leaf is kept in float32 whatever
+    the model's dtype, holding that dtype's value cast up (the fused
+    kernels read these leaves as f32, so no call casts them)."""
 
-    __slots__ = ("kind", "shape", "std")
+    __slots__ = ("kind", "shape", "std", "f32")
 
-    def __init__(self, kind: str, shape: tuple, std: float = 0.0):
+    def __init__(self, kind: str, shape: tuple, std: float = 0.0,
+                 f32: bool = False):
         self.kind, self.shape, self.std = kind, tuple(shape), std
+        self.f32 = f32
 
     def fan_in(self) -> int:
         if self.kind == "linear":
@@ -163,10 +168,17 @@ def conv_spec(kh: int, kw: int, c_in: int, c_out: int) -> Params:
 
 
 def fused_conv_spec(c_in: int, c_out: int) -> Params:
-    """3x3 conv behind GN -> SiLU, weight HWIO for the fused kernel."""
+    """3x3 conv behind GN -> SiLU, weight HWIO for the fused kernel, bias
+    f32."""
     return {"w": Spec("conv_hwio", (3, 3, c_in, c_out)),
-            "b": Spec("bias", (c_out,))}
+            "b": Spec("bias", (c_out,), f32=True)}
 
 
 def norm_spec(c: int) -> Params:
     return {"scale": Spec("norm_scale", (c,)), "bias": Spec("bias", (c,))}
+
+
+def fused_norm_spec(c: int) -> Params:
+    """GroupNorm in front of a fused conv: scale and bias f32."""
+    return {"scale": Spec("norm_scale", (c,), f32=True),
+            "bias": Spec("bias", (c,), f32=True)}

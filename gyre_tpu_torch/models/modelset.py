@@ -13,6 +13,10 @@ Counterpart of gyre_tpu/models/modelset.py. Two ways to fill one:
     misshapen or unconsumed leaf raises, except the subtrees of parts not
     ported yet (NOT_PORTED).
 
+Both make every leaf in the given dtype; the leaves the fused GN -> SiLU ->
+conv kernels read as f32 (the GroupNorm scale and bias in front of each
+fused conv, and its bias; ``Spec.f32``) are then cast up to f32 once.
+
 Loading real safetensors checkpoints is not ported yet.
 """
 
@@ -80,7 +84,7 @@ def _specs(cfg: configs.ModelSetConfig):
 
 
 def _random_tree(specs, gen, dtype, device):
-    def make(_, s: L.Spec):
+    def make(s: L.Spec):
         if s.kind == "bias":
             return torch.zeros(s.shape, dtype=dtype, device=device)
         if s.kind == "norm_scale":
@@ -92,7 +96,13 @@ def _random_tree(specs, gen, dtype, device):
         t = torch.rand(s.shape, generator=gen, device=device)
         return ((t * 2.0 - 1.0) * bound).to(dtype)
 
-    return _map_specs(make, specs)
+    return _map_specs(lambda _, s: _as_spec_dtype(make(s), s), specs)
+
+
+def _as_spec_dtype(t, s: L.Spec):
+    """A leaf made in the model's dtype; an f32 spec's leaf cast up once,
+    here, so it holds exactly the model dtype's value."""
+    return t.float() if s.f32 else t
 
 
 def random_modelset(cfg: configs.ModelSetConfig, seed: int = 0,
@@ -163,8 +173,8 @@ def _convert(specs, jax_tree, name: str, dtype, device, skip=()):
                              f"shape {a.shape} after conversion, the port "
                              f"expects {s.shape}")
         consumed.add(path)
-        return torch.tensor(np.ascontiguousarray(a), dtype=dtype,
-                            device=device)
+        return _as_spec_dtype(torch.tensor(np.ascontiguousarray(a),
+                                           dtype=dtype, device=device), s)
 
     out = _map_specs(take, specs)
     left = [p for p in _jax_leaf_paths(jax_tree)

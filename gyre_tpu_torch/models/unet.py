@@ -37,9 +37,9 @@ def _check_config(cfg: UNetConfig):
 
 def _resnet_specs(c_in, c_out, temb_dim):
     p = {
-        "norm1": L.norm_spec(c_in),
+        "norm1": L.fused_norm_spec(c_in),
         "conv1": L.fused_conv_spec(c_in, c_out),
-        "norm2": L.norm_spec(c_out),
+        "norm2": L.fused_norm_spec(c_out),
         "conv2": L.fused_conv_spec(c_out, c_out),
         "time_emb": L.linear_spec(temb_dim, c_out),
     }

@@ -19,9 +19,9 @@ _EPS = 1e-6
 
 def _resnet_specs(c_in, c_out):
     p = {
-        "norm1": L.norm_spec(c_in),
+        "norm1": L.fused_norm_spec(c_in),
         "conv1": L.fused_conv_spec(c_in, c_out),
-        "norm2": L.norm_spec(c_out),
+        "norm2": L.fused_norm_spec(c_out),
         "conv2": L.fused_conv_spec(c_out, c_out),
     }
     if c_in != c_out:

@@ -15,21 +15,34 @@ package's TPU gate (fusion off by default) is not carried over.
 
 Layout: x NHWC [B,H,W,C]; w HWIO [3,3,C,Co], the layout K2b reads (the
 models keep these weights in it); bias [Co]. Each public function takes its
-plain version for CPU tensors and its kernel for CUDA tensors, which must
-be contiguous bf16 with C and Co multiples of 8; anything else raises.
+plain version for CPU tensors and its kernel for CUDA tensors: x and w
+contiguous bf16 with C and Co multiples of 8, the GroupNorm scale and bias
+and the conv bias contiguous f32 (the models keep these leaves in f32, so
+no call casts them); anything else raises.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from .. import _build
 
-# pixels each K2a pass-1 block sums; enough blocks to fill the card at
-# batch 1 without making the pass-2 combine long
-_GN_MIN_PIXELS = 32
-_GN_TARGET_BLOCKS = 528   # 4 blocks of 128 threads per SM on 132 SMs
+# K2a's launch (csrc/gn_stats.cu), a rule fit to kernel_sweep.py's table of
+# every (slabs, cluster, threads) at chip_smoke.py's shapes on the H100
+# (PERF.md). From _GN_BIG vectors of 16 bytes (32 MiB) on, bandwidth decides:
+# about 8 clusters of 9 blocks of 1024 threads. Below, the launch floor
+# does: 96-192 blocks of 256 threads at ~16 vectors a thread, in slabs of
+# at least 32 channels.
+_GN_MAX_SLAB = 512
+_GN_MAX_CLUSTER = 16
+_GN_BIG = 1 << 21
+_GN_BIG_CLUSTERS, _GN_BIG_CLUSTER = 8, 9
+_GN_BLOCKS = (96, 192)
+_GN_VECTORS_PER_THREAD = 16
+_GN_MIN_SLAB = 32
 
 
 # ------------------------------------------------------------ plain versions
@@ -75,8 +88,46 @@ def gn_silu_conv3x3_plain(x, gn_scale, gn_bias, w, conv_bias, *,
 # ------------------------------------------------------------------ kernels
 
 
+def gn_slabs(c: int, groups: int) -> list[int]:
+    """The slab counts K2a takes for c channels in groups: whole groups, a
+    multiple of 8 channels and at most _GN_MAX_SLAB a slab; ascending."""
+    if c % groups:
+        raise ValueError(f"gn_affine: {c} channels do not split into "
+                         f"{groups} groups")
+    return [s for s in range(1, groups + 1)
+            if groups % s == 0 and (c // s) % 8 == 0
+            and c // s <= _GN_MAX_SLAB]
+
+
+@functools.lru_cache(maxsize=256)
+def gn_launch(bsz: int, hw: int, c: int,
+              groups: int) -> tuple[int, int, int]:
+    """K2a's launch for x [bsz, hw pixels, c]: (slabs, cluster size,
+    threads of a block). Each cluster owns one batch row's slab of whole
+    groups and its blocks split the pixels."""
+    slabs = gn_slabs(c, groups)
+    if not slabs:
+        raise ValueError(f"gn_affine: {c} channels in {groups} groups have "
+                         f"no slab of whole groups that is a multiple of 8 "
+                         f"channels and at most {_GN_MAX_SLAB}")
+    vectors = bsz * hw * c // 8
+    if vectors >= _GN_BIG:
+        s = next((n for n in slabs if bsz * n >= _GN_BIG_CLUSTERS),
+                 slabs[-1])
+        cluster = -(-_GN_BIG_CLUSTERS * _GN_BIG_CLUSTER // (bsz * s))
+        return s, max(1, min(cluster, _GN_MAX_CLUSTER)), 1024
+    want = max(_GN_BLOCKS[0], min(_GN_BLOCKS[1], -(-vectors // (
+        256 * _GN_VECTORS_PER_THREAD))))
+    wide = [n for n in slabs if c // n >= min(_GN_MIN_SLAB, c)]
+    s = wide[-1] if wide else slabs[0]
+    rows = 256 // (c // s // 8)
+    cluster = min(round(want / (bsz * s)), _GN_MAX_CLUSTER, -(-hw // rows))
+    return s, max(1, cluster), 256
+
+
 def gn_affine(x, gn_scale, gn_bias, groups: int, eps: float):
-    """K2a: x [B,H,W,C] -> (a, b) [B,C] f32 with x*a+b == GN(x)*scale+bias."""
+    """K2a: x [B,H,W,C] -> (a, b) [B,C] f32 with x*a+b == GN(x)*scale+bias.
+    On the card a and b are views of one [2,B,C] tensor."""
     if x.device.type == "cpu":
         return gn_affine_plain(x, gn_scale, gn_bias, groups, eps)
     _build.require(x, "gn_affine x", torch.bfloat16)
@@ -84,31 +135,19 @@ def gn_affine(x, gn_scale, gn_bias, groups: int, eps: float):
         raise ValueError(f"gn_affine x must be [B,H,W,C], got "
                          f"{tuple(x.shape)}")
     bsz, h, w, c = x.shape
-    if c % groups:
-        raise ValueError(f"gn_affine: {c} channels do not split into "
-                         f"{groups} groups")
-    scale = gn_scale.float().contiguous()
-    bias = gn_bias.float().contiguous()
-    _build.require(scale, "gn_affine scale", torch.float32, (c,))
-    _build.require(bias, "gn_affine bias", torch.float32, (c,))
-    hw = h * w
-    splits = max(1, min(-(-hw // _GN_MIN_PIXELS),
-                        _GN_TARGET_BLOCKS // bsz))
-    pix = -(-hw // splits)
-    splits = -(-hw // pix)
-    a = torch.empty((bsz, c), dtype=torch.float32, device=x.device)
-    b = torch.empty_like(a)
-    part = torch.empty((bsz, splits, c, 2), dtype=torch.float32,
-                       device=x.device)
+    slabs, cluster, threads = gn_launch(bsz, h * w, c, groups)
+    _build.require(gn_scale, "gn_affine scale", torch.float32, (c,))
+    _build.require(gn_bias, "gn_affine bias", torch.float32, (c,))
+    ab = torch.empty((2, bsz, c), dtype=torch.float32, device=x.device)
     lib = _build.library("gn_stats")
     with torch.cuda.device(x.device):
         rc = lib.gyre_gn_stats(
-            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), a.data_ptr(),
-            b.data_ptr(), part.data_ptr(), bsz, hw, c, groups, pix,
+            x.data_ptr(), gn_scale.data_ptr(), gn_bias.data_ptr(),
+            ab.data_ptr(), bsz, h * w, c, groups, slabs, cluster, threads,
             float(eps), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "gn_stats")
     _build.launches["gn_stats"] += 1
-    return a, b
+    return ab[0], ab[1]
 
 
 def affine_silu_conv3x3(x, a, b, w, conv_bias):
@@ -129,15 +168,14 @@ def affine_silu_conv3x3(x, a, b, w, conv_bias):
     _build.require(w, "conv weight", torch.bfloat16)
     _build.require(a, "affine a", torch.float32, (bsz, c))
     _build.require(b, "affine b", torch.float32, (bsz, c))
-    bias = conv_bias.float().contiguous()
-    _build.require(bias, "conv bias", torch.float32, (co,))
+    _build.require(conv_bias, "conv bias", torch.float32, (co,))
     out = torch.empty((bsz, h, wd, co), dtype=torch.bfloat16,
                       device=x.device)
     lib = _build.library("gn_silu_conv3x3")
     with torch.cuda.device(x.device):
         rc = lib.gyre_gn_silu_conv3x3(
             x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), bsz, h, wd, c, co,
+            conv_bias.data_ptr(), out.data_ptr(), bsz, h, wd, c, co,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "gn_silu_conv3x3")
     _build.launches["gn_silu_conv3x3"] += 1

@@ -1,10 +1,20 @@
 #!/usr/bin/env python3
 """Sweeps of the hand-written kernels' launch choices on one NVIDIA card.
 
-    python3 kernel_sweep.py [--out FILE]      # from the repo's root
+    python3 kernel_sweep.py [--out FILE] [--only gn_stats,conv,flash]
 
-Prints one JSON object per line (and appends them to FILE if given):
+from the repo's root. Prints one JSON object per line (and appends them to
+FILE if given):
 
+  * ``gn_stats``: K2a (csrc/gn_stats.cu) at every phase-3 shape of
+    chip_smoke.py (``CONV_SHAPES``, ``GN_BATCH8_SHAPES``) for every
+    (slabs, cluster size, block size) its entry takes, beside the wrapper's
+    choice
+    (``auto``), each held to the plain version within ``F32_STATS_BOUND``;
+    keys ``<slabs>x<cluster>x<threads>``;
+  * ``gn_stats_ablation``: K2a at five shapes, stopped early: after its
+    launch, after its loads and per-thread sums, before it finishes any
+    group. Timing only;
   * ``conv_split``: K2b (csrc/gn_silu_conv3x3.cu) at every SD1.5 conv
     shape of chip_smoke.py (``CONV_SHAPES``) with its split-K chosen by
     the kernel (``auto``) and forced to each of 1..16, against cuDNN's
@@ -36,10 +46,14 @@ import os
 import subprocess
 import sys
 
-from chip_smoke import ATTN_SHAPES, BF16_BOUND, CONV_SHAPES, _timed
+from chip_smoke import (ATTN_SHAPES, BF16_BOUND, CONV_SHAPES,
+                        F32_STATS_BOUND, GN_BATCH8_SHAPES, _timed)
 
 ABLATION_SHAPES = ("unet_8_2560_1280", "unet_16_1280_1280",
                    "unet_64_320_320", "vae_128_512_512")
+GN_ABLATION_SHAPES = ("unet_8_1280_1280", "unet_16_1280_1280",
+                      "unet_32_640_640", "unet_64_320_320",
+                      "vae_512_128_128")
 
 
 def _sub(src: str, old: str, new: str) -> str:
@@ -77,6 +91,22 @@ def conv_variants(src: str) -> dict[str, str]:
             "neither_nor_products": _sub(
                 neither, _PRODUCTS,
                 "    for (int kk = 0; kk < 0; ++kk)\n      wgmma_n128(")}
+
+
+# K2a lines the ablations cut after
+_GN_START = "  cluster_arrive_relaxed();\n"
+_GN_BLOCK_SUM = "  // over the block's rows: lanes"
+_GN_FINISH = "  for (int j = warp; rank + ncl * j < groups; j += kWarps) {"
+
+
+def gn_variants(src: str) -> dict[str, str]:
+    """K2a sources that stop early, at the wrapper's launch: after the
+    launch itself, after the loads and per-thread sums, and after the
+    cluster's exchange (no group is finished). Timing only."""
+    stop = "  if (hw > 0) return;\n"
+    return {"launch_only": _sub(src, _GN_START, _GN_START + stop),
+            "loads": _sub(src, _GN_BLOCK_SUM, stop + _GN_BLOCK_SUM),
+            "no_finish": _sub(src, _GN_FINISH, stop + _GN_FINISH)}
 
 
 def flash_variant(src: str) -> str:
@@ -121,6 +151,68 @@ def build(sources: dict[str, str]) -> dict[str, ctypes.CDLL]:
 def _rel_err(out, ref) -> float:
     out, ref = out.float(), ref.float()
     return float((out - ref).abs().max() / ref.abs().max())
+
+
+def sweep_gn_stats(libs, emit):
+    import torch
+
+    from gyre_tpu_torch import _build
+    from gyre_tpu_torch.ops import fused_norm_conv as FC
+
+    fn = _build.library("gn_stats").gyre_gn_stats
+    sig = _build.SIGNATURES["gn_stats"]["gyre_gn_stats"]
+    for lib in libs.values():
+        lib.gyre_gn_stats.argtypes = sig
+    # the floor of one launch under chip_smoke's timer: a one-element fill
+    emit({"sweep": "gn_stats_floor",
+          "fill_1_ms": _timed(lambda: torch.zeros(1, device="cuda"))})
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = [(n, b, hw, c, eps) for n, b, hw, c, _, eps, _ in CONV_SHAPES]
+    shapes += [(n, b, hw, c, eps) for n, b, hw, c, eps, _ in GN_BATCH8_SHAPES]
+    for name, b, hw, c, eps in shapes:
+        x = (torch.randn((b, hw, hw, c), generator=gen, device="cuda") +
+             torch.randn((c,), generator=gen, device="cuda") * 2.0).to(
+                 torch.bfloat16)
+        gs = 1 + 0.1 * torch.randn((c,), generator=gen, device="cuda")
+        gb = 0.1 * torch.randn((c,), generator=gen, device="cuda")
+        ab = torch.empty((2, b, c), device="cuda")
+        ref = FC.gn_affine_plain(x, gs, gb, 32, eps)
+
+        def call(launch, entry=fn):
+            rc = entry(x.data_ptr(), gs.data_ptr(), gb.data_ptr(),
+                       ab.data_ptr(), b, hw * hw, c, 32, *launch, eps,
+                       torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"gn_stats: cudaError {rc}")
+
+        times = {}
+        for threads in (256, 512, 1024):
+            for slabs in FC.gn_slabs(c, 32):
+                for cluster in range(1, 17):
+                    launch = (slabs, cluster, threads)
+                    key = "x".join(map(str, launch))
+                    try:
+                        call(launch)
+                    except RuntimeError as e:  # a launch the entry refuses
+                        times[key] = str(e)
+                        continue
+                    err = max(_rel_err(ab[i], ref[i]) for i in (0, 1))
+                    times[key] = (_timed(lambda: call(launch))
+                                  if err <= F32_STATS_BOUND else
+                                  f"error {err:.3g}")
+        ok = {k: v for k, v in times.items() if isinstance(v, float)}
+        best = min(ok, key=ok.get)
+        auto = "x".join(map(str, FC.gn_launch(b, hw * hw, c, 32)))
+        emit({"sweep": "gn_stats", "shape": name, "auto": auto,
+              "auto_ms": times[auto], "best": best, "best_ms": ok[best],
+              "slabs_x_cluster_ms": times})
+        if name in GN_ABLATION_SHAPES:
+            launch = FC.gn_launch(b, hw * hw, c, 32)
+            emit({"sweep": "gn_stats_ablation", "shape": name,
+                  "launch": auto, "kernel": times[auto],
+                  **{v: _timed(lambda lib=lib: call(launch,
+                                                    lib.gyre_gn_stats))
+                     for v, lib in libs.items()}})
 
 
 def sweep_conv(libs, emit):
@@ -233,7 +325,10 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also append the JSON lines to this file")
+    ap.add_argument("--only", default="gn_stats,conv,flash",
+                    help="comma-separated sweeps to run")
     args = ap.parse_args(argv)
+    only = set(args.only.split(","))
     if not torch.cuda.is_available():
         print("kernel_sweep: no CUDA device", file=sys.stderr)
         return 1
@@ -246,18 +341,30 @@ def main(argv=None) -> int:
             with open(args.out, "a") as fh:
                 fh.write(line + "\n")
 
-    conv_src = (_build.CSRC / "gn_silu_conv3x3.cu").read_text()
-    flash_src = (_build.CSRC / "flash_attention.cu").read_text()
-    libs = build({**{f"conv_{k}": v
-                     for k, v in conv_variants(conv_src).items()},
-                  "flash": flash_variant(flash_src)})
+    sources = {}
+    if "gn_stats" in only:
+        sources.update({f"gn_{k}": v for k, v in gn_variants(
+            (_build.CSRC / "gn_stats.cu").read_text()).items()})
+    if "conv" in only:
+        conv_src = (_build.CSRC / "gn_silu_conv3x3.cu").read_text()
+        sources.update({f"conv_{k}": v
+                        for k, v in conv_variants(conv_src).items()})
+    if "flash" in only:
+        sources["flash"] = flash_variant(
+            (_build.CSRC / "flash_attention.cu").read_text())
+    libs = build(sources)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     emit({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi})
-    sweep_conv({k[len("conv_"):]: v for k, v in libs.items()
-                if k.startswith("conv_")}, emit)
-    sweep_flash(libs["flash"], emit)
+    if "gn_stats" in only:
+        sweep_gn_stats({k[len("gn_"):]: v for k, v in libs.items()
+                        if k.startswith("gn_")}, emit)
+    if "conv" in only:
+        sweep_conv({k[len("conv_"):]: v for k, v in libs.items()
+                    if k.startswith("conv_")}, emit)
+    if "flash" in only:
+        sweep_flash(libs["flash"], emit)
     return 0
 
 

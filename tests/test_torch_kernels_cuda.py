@@ -12,9 +12,11 @@ projections. Shapes are small and ragged on purpose: head dims 40 / 8 /
 64-channel chunk or its 128-channel tile, images that are not multiples
 of its 8 x 16 (or 8 x 8) pixel tile; then the kernels' own paths at
 main-path sizes: K1 at T >= 1024 for every SD1.5 head dim and on strided
-[B,T,H,D] views, K2b's split-K (M <= 512) and a ragged C = 960. Bounds as in
-chip_smoke.py: 2e-2 of max |plain| in bf16 (compounded bf16 rounding, ~5x
-margin), 1e-3 for K2a's f32 statistics.
+[B,T,H,D] views, K2b's split-K (M <= 512) and a ragged C = 960, K2a's
+cluster launch at path shapes of batch 1 and 8, ragged, with vectors that
+straddle two groups and under cancellation. Bounds as in chip_smoke.py:
+2e-2 of max |plain| in bf16 (compounded bf16 rounding, ~5x margin), 1e-3
+for K2a's f32 statistics.
 """
 
 import pytest
@@ -144,6 +146,36 @@ def test_gn_silu_conv3x3(gen, b, h, w, c, co, groups):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,eps,offset", [
+    (2, 8, 8, 1280, 1e-5, 1.0),        # UNet 8x8: the launch floor
+    (2, 64, 64, 320, 1e-5, 1.0),       # UNet 64x64; 10 channels a group
+    (1, 512, 512, 128, 1e-6, 1.0),     # VAE 512x512: bandwidth
+    (16, 64, 64, 320, 1e-5, 1.0),      # the batch-8 call's 16 CFG rows
+    (3, 37, 41, 960, 1e-5, 1.0),       # 1517 pixels; 30 channels a group
+    (2, 32, 32, 960, 1e-5, 1.0),       # 30 channels a group
+    (2, 64, 64, 320, 1e-5, 30.0),      # per-channel offsets 30x the spread
+])
+def test_gn_stats(gen, b, h, w, c, eps, offset):
+    """K2a, one cluster launch per call, against its plain version; a and
+    b are contiguous views of one tensor; a second call gives the same
+    bits (every sum in a fixed order)."""
+    x = (torch.randn((b, h, w, c), generator=gen, device="cuda") + offset *
+         torch.randn((c,), generator=gen, device="cuda")).to(torch.bfloat16)
+    gs = 1 + 0.1 * _randn(gen, c, dtype=torch.float32)
+    gb = 0.1 * _randn(gen, c, dtype=torch.float32)
+    before = _build.launches["gn_stats"]
+    a, bb = FC.gn_affine(x, gs, gb, 32, eps)
+    assert _build.launches["gn_stats"] == before + 1
+    assert a.is_contiguous() and bb.is_contiguous()
+    assert a.shape == bb.shape == (b, c)
+    a_ref, b_ref = FC.gn_affine_plain(x, gs, gb, 32, eps)
+    assert _rel(a, a_ref) <= F32_STATS_BOUND
+    assert _rel(bb, b_ref) <= F32_STATS_BOUND
+    a2, b2 = FC.gn_affine(x, gs, gb, 32, eps)
+    assert torch.equal(a, a2) and torch.equal(bb, b2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,hw,c,co", [
     (2, 8, 2560, 1280), (2, 16, 1920, 1280), (2, 8, 1280, 1280)])
 def test_conv_split_k(gen, b, hw, c, co):
@@ -181,11 +213,34 @@ def test_conv_ragged_c(gen, b, h, w, c, co):
 
 
 @pytest.mark.cuda
-def test_fused_conv_rejects(gen):
-    x = _randn(gen, 1, 4, 4, 12)                  # C not a multiple of 8
-    a = torch.ones((1, 12), device="cuda")
+@pytest.mark.parametrize("bad", ["channels", "x_float32", "scale_bf16",
+                                 "bias_bf16", "conv_bias_bf16"])
+def test_fused_conv_rejects(gen, bad):
+    """What the kernels do not take raises: C not a multiple of 8, f32 x,
+    and the f32 parameters passed as bf16 (the wrappers cast nothing)."""
+    if bad == "channels":
+        x = _randn(gen, 1, 4, 4, 12)
+        a = torch.ones((1, 12), device="cuda")
+        with pytest.raises(ValueError):
+            FC.affine_silu_conv3x3(x, a, a, _randn(gen, 3, 3, 12, 8),
+                                   torch.zeros(8, device="cuda"))
+        with pytest.raises(ValueError):
+            FC.gn_affine(x, a[0], a[0], 4, 1e-6)
+        return
+    x = _randn(gen, 1, 4, 4, 16)
+    ones = torch.ones(16, device="cuda")
+    scale, bias = ones, ones
+    if bad == "conv_bias_bf16":
+        a = torch.ones((1, 16), device="cuda")
+        with pytest.raises(ValueError):
+            FC.affine_silu_conv3x3(x, a, a, _randn(gen, 3, 3, 16, 8),
+                                   torch.zeros(8, device="cuda").bfloat16())
+        return
+    if bad == "x_float32":
+        x = x.float()
+    elif bad == "scale_bf16":
+        scale = ones.bfloat16()
+    else:
+        bias = ones.bfloat16()
     with pytest.raises(ValueError):
-        FC.affine_silu_conv3x3(x, a, a, _randn(gen, 3, 3, 12, 8),
-                               torch.zeros(8, device="cuda"))
-    with pytest.raises(ValueError):
-        FC.gn_affine(x.float(), a[0], a[0], 4, 1e-6)
+        FC.gn_affine(x, scale, bias, 4, 1e-6)

@@ -138,3 +138,57 @@ def test_random_modelset_matches_bridged_structure(pair):
     assert bool((norm["scale"] == 1).all()) and bool((norm["bias"] == 0).all())
     w = ms.unet_params["conv_in"]["w"]          # OIHW, fan_in = 4*3*3
     assert float(w.abs().max()) <= 36 ** -0.5
+
+
+def _spec_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _spec_leaves(v, path + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _spec_leaves(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+@pytest.mark.parametrize("source", ["random_preset", "from_jax_params"])
+def test_fused_conv_params_f32(pair, source):
+    """The GroupNorm scale and bias in front of every fused conv, and that
+    conv's bias, are f32 leaves made once with a bf16 ModelSet, each the
+    exact f32 value of the bf16 leaf (so the kernels' wrappers cast nothing
+    and the images do not change); every other leaf stays bf16."""
+    (up, vp, tp), _ = pair
+    if source == "random_preset":
+        ms = tms.random_preset("test", device="cpu")
+    else:
+        ms = tms.from_jax_params(up, vp, tp, CFG, dtype=torch.bfloat16,
+                                 device="cpu")
+    trees = {"unet_params": (tunet.param_specs(CFG.unet), up),
+             "vae_params": (tvae.param_specs(CFG.vae), vp)}
+    n_f32 = 0
+    for part, (specs, jax_tree) in trees.items():
+        for path, spec in _spec_leaves(specs):
+            leaf = _at(getattr(ms, part), path)
+            fused = (path[-2] in ("norm1", "norm2") or
+                     (path[-2] in ("conv1", "conv2") and path[-1] == "b"))
+            assert spec.f32 == fused, path
+            if not fused:
+                assert leaf.dtype == torch.bfloat16, path
+                continue
+            n_f32 += 1
+            assert leaf.dtype == torch.float32, path
+            bf16 = (leaf.to(torch.bfloat16) if source == "random_preset"
+                    else torch.tensor(np.asarray(_at(jax_tree, path),
+                                                 np.float32),
+                                      dtype=torch.bfloat16))
+            assert torch.equal(leaf, bf16.float()), path
+    resnets = sum(1 for part in ("unet_params", "vae_params")
+                  for path, _ in _spec_leaves(trees[part][0])
+                  if path[-2:] == ("norm1", "scale"))
+    assert resnets > 0 and n_f32 == 6 * resnets
