@@ -26,6 +26,14 @@ Phases, each printing one JSON object per line:
                images/s, peak memory and what phase 3 left allocated
   5. serve     EngineManager + the coalescing dispatcher under concurrent
                requests, then two Generate calls over gRPC
+  6. weights   full-width SD1.5 from disk: a random ModelSet saved as a
+               diffusers checkpoint (f32 safetensors), served through an
+               engines.yaml in the DSL (an !include, a template with
+               params) by server.build_manager and the WeightResolver:
+               load seconds and status (weights "real"), prewarm (state
+               "done"), one batch-1 request on the loaded engine against
+               the in-memory ModelSet (within 1 uint8 level; launches
+               641 / 908 / 908), one Generate over gRPC, suggest_max_batch
 
 Before the last line it prints the kernels table as one JSON object; the
 last line is {"ok": true, "device": {...}}. Any failed check raises and the
@@ -470,10 +478,10 @@ def phase_pipeline():
     return launches
 
 
-def _generate_request(seed: int):
+def _generate_request(seed: int, engine_id: str = "sd15"):
     from gyre_tpu_torch.services.generate import pb
 
-    req = pb.Request(engine_id="sd15", request_id=f"smoke-{seed}")
+    req = pb.Request(engine_id=engine_id, request_id=f"smoke-{seed}")
     req.prompt.add().text = REQUEST["prompt"]
     neg = req.prompt.add()
     neg.text = REQUEST["negative_prompt"]
@@ -544,7 +552,8 @@ def phase_serve():
         torch.cuda.empty_cache()
 
 
-def phase_grpc(manager):
+def phase_grpc(manager, engine_id: str = "sd15", seeds=(200, 201),
+               phase: str = "grpc"):
     import grpc
 
     from gyre_tpu_torch.server import build_server
@@ -560,8 +569,9 @@ def phase_grpc(manager):
             response_deserializer=pb.Answer.FromString)
         sizes = []
         t0 = time.perf_counter()
-        for seed in (200, 201):
-            answers = list(call(_generate_request(seed), timeout=600))
+        for seed in seeds:
+            answers = list(call(_generate_request(seed, engine_id),
+                                timeout=600))
             arts = [a for ans in answers for a in ans.artifacts
                     if a.type == pb.ARTIFACT_IMAGE]
             if len(arts) != 1 or arts[0].mime != "image/png" or \
@@ -569,11 +579,122 @@ def phase_grpc(manager):
                 raise AssertionError(f"Generate(seed={seed}) returned no "
                                      "PNG artifact")
             sizes.append(len(arts[0].binary))
-        emit({"phase": "grpc", "requests": 2,
+        emit({"phase": phase, "engine": engine_id, "requests": len(seeds),
               "png_bytes": sizes, "wall_s": time.perf_counter() - t0})
         channel.close()
     finally:
         server.stop(0).wait()
+
+
+# the engines.yaml of phase_weights, as users write one: an !include of a
+# template file, and an engine instantiating the template with params
+WEIGHTS_TEMPLATES = """\
+- id: smoke-sd-template
+  abstract: true
+  task: generate
+  name: "{{name}}"
+  model: {path: "{{ref}}"}
+  options: {sampler: k_dpmpp_2m}
+"""
+WEIGHTS_ENGINES = """\
+- !include smoke-templates.yaml
+- id: loaded
+  template: smoke-sd-template
+  default: true
+  params: {ref: gyre-smoke/sd15, name: SD 1.5 from disk}
+"""
+
+
+def phase_weights():
+    """Full-width SD1.5 saved to disk and served from there (module
+    docstring, phase 6). The checkpoint directory is removed at the end."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from gyre_tpu_torch import _build, server
+    from gyre_tpu_torch.models.load import save_modelset
+    from gyre_tpu_torch.models.modelset import random_preset
+    from gyre_tpu_torch.pipeline.unified import UnifiedPipeline
+
+    tmp = tempfile.mkdtemp(prefix="gyre-smoke-weights-")
+    manager = None
+    try:
+        ms = random_preset("sd15", seed=0, dtype=torch.bfloat16,
+                           device="cuda")
+        export_bytes = 2 * ms.param_bytes()     # bf16 leaves written f32
+        free = shutil.disk_usage(tmp).free
+        if free < 2 * export_bytes:
+            raise AssertionError(f"{free} bytes free under {tmp}, the f32 "
+                                 f"export needs up to {export_bytes}")
+        ckpt = os.path.join(tmp, "weights", "gyre-smoke--sd15")
+        t0 = time.perf_counter()
+        save_modelset(ms, ckpt)
+        save_s = time.perf_counter() - t0
+        written = sum(os.path.getsize(os.path.join(d, f))
+                      for d, _, files in os.walk(ckpt) for f in files)
+        with open(os.path.join(tmp, "smoke-templates.yaml"), "w") as fh:
+            fh.write(WEIGHTS_TEMPLATES)
+        with open(os.path.join(tmp, "engines.yaml"), "w") as fh:
+            fh.write(WEIGHTS_ENGINES)
+        manager = server.build_manager(server.parse_args(
+            ["--enginecfg", os.path.join(tmp, "engines.yaml"),
+             "--weight_root", os.path.join(tmp, "weights"),
+             "--cache_path", os.path.join(tmp, "cache")]))
+        t0 = time.perf_counter()
+        manager.load_engines()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        status = manager.status()
+        emit({"phase": "weights", "step": "load", "disk_free_bytes": free, "bytes_written": written,
+              "save_s": save_s, "load_s": load_s, "status": status})
+        if [s["weights"] for s in status] != ["real"]:
+            raise AssertionError(f"engine status {status}")
+
+        t0 = time.perf_counter()
+        manager.prewarm()
+        emit({"phase": "weights", "step": "prewarm",
+              "state": manager.prewarm_state,
+              "seconds": time.perf_counter() - t0})
+        if manager.prewarm_state["state"] != "done":
+            raise AssertionError(f"prewarm {manager.prewarm_state}")
+
+        kw = dict(REQUEST, seeds=[7], output_dtype="uint8", chunk_steps=10,
+                  stop_event=threading.Event())
+        _build.reset_launches()
+        loaded = manager.pipeline("loaded")(**kw)
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+        in_memory = UnifiedPipeline(ms, compute_dtype=torch.bfloat16)(**kw)
+        diff = int((loaded.int() - in_memory.int()).abs().max())
+        emit({"phase": "weights", "step": "image", "launches": launches,
+              "max_abs_diff_uint8": diff,
+              "equal": bool(torch.equal(loaded, in_memory))})
+        if launches != EXPECTED_LAUNCHES:
+            raise AssertionError(f"loaded engine: launch counts {launches} "
+                                 f"!= {EXPECTED_LAUNCHES}")
+        if tuple(loaded.shape) != (1, REQUEST["height"], REQUEST["width"],
+                                   3) or diff > 1:
+            raise AssertionError(f"loaded engine's image {tuple(loaded.shape)}"
+                                 f" differs from the in-memory one by {diff}")
+        del ms, in_memory
+        torch.cuda.empty_cache()
+
+        phase_grpc(manager, "loaded", seeds=(300,), phase="weights_grpc")
+        t0 = time.perf_counter()
+        batch = manager.suggest_max_batch("loaded", 512, 512)
+        emit({"phase": "weights", "step": "suggest_max_batch",
+              "height": 512, "width": 512, "max_batch": batch,
+              "bytes_per_image": manager._probe_bytes_per_image(
+                  "loaded", 512, 512),
+              "seconds": time.perf_counter() - t0})
+    finally:
+        if manager is not None:
+            manager.dispatcher.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
 
 
 # kernel-name substrings of csrc/'s kernels (and of earlier trees' K2a)
@@ -703,6 +824,7 @@ def main() -> int:
     kernels = phase_kernels()
     launches = phase_pipeline()
     phase_serve()
+    phase_weights()
     # ms, plain_ms, library_ms, bound_ms: sums over the phase-3 shapes of
     # the median times and of the bounds; the *_per_call keys weight each
     # shape by its launches in one batch-1 call; max_abs_err: the largest

@@ -7,9 +7,11 @@ utils/, server.py), imports torch and never jax, and runs its TPU kernels as
 hand-written CUDA kernels (csrc/, built at first use by _build.py).
 It imports nothing of gyre_tpu either: the JAX-free modules it needs
 (models/configs.py, pipeline/tokenizer.py, manager/scheduler.py,
-services/exception_to_grpc.py and registration.py, utils/timing.py, the
-protocol stubs under generated/) are copies, at the same relative paths,
-held to their originals by tests/test_torch_vendored.py.
+manager/engines_yaml.py, manager/weights.py, models/ldm.py's rename
+tables, services/exception_to_grpc.py and registration.py,
+utils/timing.py, the protocol stubs under generated/) are copies, at the
+same relative paths, held to their originals by
+tests/test_torch_vendored.py and tests/test_torch_load.py.
 """
 
 import torch

@@ -1,29 +1,49 @@
 """EngineManager: engine registry, model-set construction, dispatcher.
 
-Counterpart of gyre_tpu/manager/manager.py, txt2img subset. Engines are
-given as a list of dicts (the engines.yaml entry format; ``load_yaml``
-reads such a file). A ``model: {preset: <name>, seed: N}`` engine builds a
-random-weight ModelSet of a models.configs preset on the manager's
-device. Weight files, model mixes, ``@engine`` part references,
-LoRA/textual inversion and task engines are not ported yet and raise.
+Counterpart of gyre_tpu/manager/manager.py, the generate-engine part.
+Engines come from the engines.yaml DSL (engines_yaml.py, read by
+``manager_from_yaml`` or the server's ``build_manager``) as a list of
+entries. A generate engine's ``model:`` is
+
+  * a preset (``preset/sd15``, ``{preset: sd15, seed: 0}``): random
+    weights of a models.configs preset, made on the manager's device;
+  * a weight reference (a bare string or ``{path: ...}``, with optional
+    ``subfolder``/``allow_patterns``): resolved to a local checkpoint
+    directory by the WeightResolver (weights.py) and loaded from disk
+    (models/load.py);
+  * a mix (``{mix: [...], algorithm: ...}``) of other engines (mixing.py);
+
+and ``vae/unet/text_encoder/tokenizer: "@engine"`` share that part of
+another engine (the same tensors, no copy). ``model_id`` entries are the
+registry ``@ref`` chains resolve through (load_model_entry). A failed build
+falls back to the engine named by ``fallback:``.
 
 All device work of the serving path flows through ONE shared
 CoalescingDispatcher (manager/scheduler.py, the port's copy of the JAX
 package's): its single thread owns the card and merges compatible
 concurrent requests into one batch.
+
+Not ported, and raising NotImplementedError with the ROADMAP item when an
+engine or request needs them: LoRA/TI adapters (C3), hintsets and hint
+models (C4), grafting (C2), the CLIP model for guidance (C6), task engines
+(D).
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
-from ..models.modelset import ModelSet, random_preset
+from ..models import configs
+from ..models.modelset import ModelSet, random_modelset
 from ..pipeline.unified import UnifiedPipeline
+from . import engines_yaml
 from .scheduler import CoalescingDispatcher
 
 logger = logging.getLogger(__name__)
@@ -38,8 +58,9 @@ class EngineSpec:
     visible: bool = True
     default: bool = False
     task: str = "generate"
-    model: str | dict | None = None     # preset name or {preset:, seed:}
+    model: str | dict | None = None     # preset name / weights path / dict
     options: dict = field(default_factory=dict)
+    params: dict = field(default_factory=dict)
 
     @classmethod
     def from_dict(cls, d: dict) -> "EngineSpec":
@@ -53,11 +74,20 @@ class EngineSpec:
             task=str(d.get("task", d.get("class", "generate"))).lower(),
             model=d.get("model"),
             options=d.get("options") or {},
+            params={k: v for k, v in d.items()
+                    if k not in ("id", "name", "description", "enabled",
+                                 "visible", "default", "task", "model",
+                                 "options")},
         )
 
 
 class EngineNotFoundError(KeyError):
     pass
+
+
+def _unported(what: str, item: str):
+    raise NotImplementedError(
+        f"{what} is not ported to gyre_tpu_torch yet (ROADMAP {item})")
 
 
 class DispatchView:
@@ -81,8 +111,17 @@ class DispatchView:
 class EngineManager:
     """Loads engines, owns the dispatcher, hands out pipelines."""
 
-    def __init__(self, engine_specs, device, compute_dtype=torch.bfloat16,
-                 batch_max: int = 4, gather_ms: float = 10.0):
+    def __init__(self, engine_specs, device="cuda",
+                 compute_dtype=torch.bfloat16, batch_max: int = 4,
+                 weight_resolver=None, interleave: int = 2,
+                 gather_ms: float = 10.0, watchdog_s: float = 900.0):
+        entries = [s for s in engine_specs if isinstance(s, dict)]
+        # model_id entries: the shared model registry "@ref"s resolve
+        # through (reference @model_id memoization, gyre/manager.py:
+        # 1602-1648 and config/models/*.yaml)
+        self.model_entries: dict[str, dict] = {
+            e["model_id"]: e for e in entries
+            if isinstance(e.get("model_id"), str)}
         self.specs: list[EngineSpec] = [
             s if isinstance(s, EngineSpec) else EngineSpec.from_dict(s)
             for s in engine_specs
@@ -91,49 +130,114 @@ class EngineManager:
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
         self.batch_max = batch_max
+        self._weight_resolver = weight_resolver
         self._modelsets: dict[str, ModelSet] = {}
         self._pipelines: dict[str, UnifiedPipeline] = {}
         self._views: dict[str, DispatchView] = {}
+        self._probes: dict[tuple, float] = {}
+        # per-engine weight provenance for status(): "real" (checkpoint
+        # loaded), "random" (random weights: loud, so no engine silently
+        # serves untrained weights), "pending" (not built yet)
+        self._weights_kind: dict[str, str] = {}
+        # guards lazy model/pipeline construction only; device work is
+        # serialised (and batched) by the dispatcher's thread
         self._load_lock = threading.RLock()
         self._loaded = False
+        # max merged rows == batch_max: also the shape prewarm runs
         self.dispatcher = CoalescingDispatcher(max_batch=max(batch_max, 1),
-                                               gather_ms=gather_ms)
+                                               interleave=interleave,
+                                               gather_ms=gather_ms,
+                                               watchdog_s=watchdog_s)
+        # off -> running -> done | failed
+        self.prewarm_state: dict = {"state": "off"}
 
     # ------------------------------------------------------------ loading
 
     def load_engines(self):
+        """Build every enabled generate engine's ModelSet."""
         for spec in self.specs:
-            if spec.enabled and spec.task == "generate":
-                ms = self.modelset(spec.id)
-                logger.info("engine %s loaded (%.1f MB params)", spec.id,
-                            ms.param_bytes() / 1e6)
+            if not spec.enabled or spec.task != "generate":
+                continue
+            ms = self.modelset(spec.id)  # includes the fallback handling
+            logger.info("engine %s loaded (%.1f MB params, %s weights)",
+                        spec.id, ms.param_bytes() / 1e6,
+                        self._weights_kind.get(spec.id, "pending"))
         self._loaded = True
+
+    @property
+    def weight_resolver(self):
+        if self._weight_resolver is None:
+            from .weights import WeightResolver
+
+            self._weight_resolver = WeightResolver()
+        return self._weight_resolver
 
     def _build_modelset(self, spec: EngineSpec) -> ModelSet:
         if spec.task != "generate":
-            raise NotImplementedError(
-                f"engine {spec.id}: task {spec.task!r} is not ported to "
-                "gyre_tpu_torch yet")
+            _unported(f"engine {spec.id}: task {spec.task!r}", "D")
         model = spec.model
+        if isinstance(model, dict) and model.get("mix"):
+            # model mixing: merge other engines' weights (reference
+            # gyre/manager.py:1296-1443)
+            from .mixing import mix_modelsets
+
+            parts = []
+            src_ids = []
+            for entry in model["mix"]:
+                if isinstance(entry, str):
+                    entry = {"source": entry, "weight": 1.0}
+                src_ids.append(str(entry["source"]).lstrip("@"))
+                parts.append((self.modelset(src_ids[-1]),
+                              float(entry.get("weight", 1.0))))
+            self._weights_kind[spec.id] = "real" if all(
+                self._weights_kind.get(i) == "real" for i in src_ids) \
+                else "random"
+            return mix_modelsets(parts,
+                                 model.get("algorithm", "weighted_sum"),
+                                 engine_id=spec.id)
         if isinstance(model, dict):
-            unported = sorted(set(model) - {"preset", "seed"})
-            if unported:
-                raise NotImplementedError(
-                    f"engine {spec.id}: model keys {unported} are not "
-                    "ported to gyre_tpu_torch yet (random-weight presets "
-                    "only)")
-            preset, seed = model.get("preset", "sd15"), int(
-                model.get("seed", 0))
+            path = model.get("path")
+            preset = model.get("preset", "sd15")
+            seed = int(model.get("seed", 0))
         elif isinstance(model, str) and model.startswith("preset/"):
-            preset, seed = model.split("/", 1)[1], 0
-        elif model is None:
-            preset, seed = "sd15", 0
+            path, preset, seed = None, model.split("/", 1)[1], 0
+        elif isinstance(model, str) and model:
+            path, preset, seed = model, "sd15", 0
         else:
-            raise NotImplementedError(
-                f"engine {spec.id}: loading weights ({model!r}) is not "
-                "ported to gyre_tpu_torch yet (random-weight presets only)")
-        return random_preset(preset, seed=seed, dtype=self.compute_dtype,
-                             device=self.device, engine_id=spec.id)
+            path, preset, seed = None, "sd15", 0
+
+        cfg = configs.PRESETS.get(preset)
+        if cfg is None:
+            raise ValueError(f"engine {spec.id}: unknown preset {preset!r}")
+
+        if path:
+            from ..models.load import load_modelset
+
+            sub = pats = None
+            if isinstance(model, dict):
+                sub = model.get("subfolder")
+                pats = model.get("allow_patterns")
+            resolved = self.weight_resolver.resolve(
+                path, subfolder=sub, allow_patterns=pats)
+            ms = load_modelset(resolved, cfg, dtype=self.compute_dtype,
+                               device=self.device, engine_id=spec.id)
+            self._weights_kind[spec.id] = "real"
+        else:
+            ms = random_modelset(cfg, seed=seed, dtype=self.compute_dtype,
+                                 device=self.device, engine_id=spec.id)
+            self._weights_kind[spec.id] = "random"
+
+        # '@engine-id' part references: share another engine's tensors
+        # (reference @model_id references with memoization,
+        # gyre/manager.py:1602-1648)
+        if isinstance(model, dict):
+            for part, attr in (("vae", "vae_params"), ("unet", "unet_params"),
+                               ("text_encoder", "text_params"),
+                               ("tokenizer", "tokenizer")):
+                ref = model.get(part)
+                if isinstance(ref, str) and ref.startswith("@"):
+                    setattr(ms, attr, getattr(self.modelset(ref[1:]), attr))
+        return ms
 
     # ------------------------------------------------------------- access
 
@@ -156,20 +260,38 @@ class EngineManager:
     def modelset(self, engine_id: str) -> ModelSet:
         if engine_id not in self._modelsets:
             with self._load_lock:
-                if engine_id not in self._modelsets:
-                    spec = self.spec(engine_id)
-                    if not spec.enabled:
-                        raise EngineNotFoundError(engine_id)
+                if engine_id in self._modelsets:
+                    return self._modelsets[engine_id]
+                spec = self.spec(engine_id)
+                if not spec.enabled:
+                    raise EngineNotFoundError(engine_id)
+                try:
                     self._modelsets[engine_id] = self._build_modelset(spec)
+                except Exception as e:  # noqa: BLE001 - re-raised below
+                    # engine `fallback:` spec (reference gyre/manager.py:
+                    # 1662-1668): a failed load serves another engine
+                    fb = spec.params.get("fallback")
+                    if not fb:
+                        raise
+                    logger.warning("engine %s failed to load (%s); falling "
+                                   "back to %s", engine_id, e, fb)
+                    self._modelsets[engine_id] = self.modelset(fb)
+                    self._weights_kind[engine_id] = \
+                        self._weights_kind.get(fb, "pending")
         return self._modelsets[engine_id]
 
     def pipeline(self, engine_id: str) -> UnifiedPipeline:
         if engine_id not in self._pipelines:
             with self._load_lock:
-                if engine_id not in self._pipelines:
-                    self._pipelines[engine_id] = UnifiedPipeline(
-                        self.modelset(engine_id),
-                        compute_dtype=self.compute_dtype)
+                if engine_id in self._pipelines:
+                    return self._pipelines[engine_id]
+                spec = self.spec(engine_id)
+                if spec.params.get("graft") or \
+                        (spec.options or {}).get("graft"):
+                    _unported(f"engine {engine_id}: graft", "C2")
+                self._pipelines[engine_id] = UnifiedPipeline(
+                    self.modelset(engine_id),
+                    compute_dtype=self.compute_dtype)
         return self._pipelines[engine_id]
 
     def dispatch_view(self, engine_id: str) -> DispatchView:
@@ -186,27 +308,180 @@ class EngineManager:
     def with_engine(self, engine_id: str | None = None):
         """Borrow an engine for one request: yields its DispatchView.
         Not a device claim: device work is serialised (and batched) by the
-        dispatcher thread. LoRA/TI adapters are not ported yet."""
+        dispatcher thread. LoRA/TI adapters are not ported yet (C3):
+        requests carrying them answer UNIMPLEMENTED before they get here."""
         yield self.dispatch_view(engine_id or self.default_engine_id())
 
+    def load_model_entry(self, ref: str):
+        """'@model-id' registry reference or direct path/repo -> (state
+        dict, config entry, resolved path). The entry's model/subfolder/
+        allow_patterns keys drive weight resolution (reference
+        model-config loading, gyre/manager.py:1602-1698)."""
+        from ..models.load import read_state_dict
+
+        entry: dict = {}
+        src = ref
+        seen: set[str] = set()
+        # follow '@a' -> '@b' alias chains (reference clip-common ->
+        # @laion-clip-h, gyre/config/models/clip.yaml); later entries in
+        # the chain keep the first entry's subfolder/patterns when unset
+        while isinstance(src, str) and src.startswith("@"):
+            mid = src[1:]
+            if mid in seen:
+                raise ValueError(f"model_id reference cycle at {mid!r}")
+            seen.add(mid)
+            if mid not in self.model_entries:
+                raise KeyError(f"unknown model_id {mid!r}")
+            nxt = self.model_entries[mid]
+            entry = {**nxt, **{k: v for k, v in entry.items()
+                               if k in ("subfolder", "allow_patterns")}}
+            src = nxt.get("model") or nxt.get("source")
+            if not isinstance(src, str):
+                raise ValueError(f"model_id {mid!r} has no model reference")
+        path = self.weight_resolver.resolve(
+            src, subfolder=entry.get("subfolder"),
+            allow_patterns=entry.get("allow_patterns"))
+        return read_state_dict(path), entry, path
+
+    # ----------------------------------------------------- warm-up, sizing
+
+    def prewarm(self, engine_id: str | None = None, *, height: int = 512,
+                width: int = 512, steps: int = 50, buckets: bool = False):
+        """Run the default engine's serving configuration once ahead of
+        the first request, through the dispatcher (the card's one owner
+        thread): one 1-sample request as the servicer sends it (chunked,
+        with a stop event, uint8 out); with ``buckets`` also the
+        dispatcher's max batch; then the engine's ``options:
+        prewarm_sizes``. On the card this builds the kernels, loads the
+        CUDA libraries and sizes the caching allocator's pools before
+        traffic arrives. ``prewarm_state``: running -> done | failed."""
+        eid = engine_id or self.default_engine_id()
+        if eid is None:
+            return
+        t0 = time.time()
+        self.prewarm_state = {"state": "running", "engine": eid}
+        try:
+            spec = self.spec(eid)
+            sampler = (spec.options or {}).get("sampler", "k_dpmpp_2m")
+            view = self.dispatch_view(eid)
+            ev = threading.Event()
+            kwargs = dict(prompt="prewarm", height=height, width=width,
+                          steps=steps, sampler=sampler, seeds=[0],
+                          guidance_scale=7.5, stop_event=ev, chunk_steps=10,
+                          output_dtype="uint8")
+            np.asarray(self.dispatcher.submit(view, kwargs, ev).result())
+            sizes = [1]
+            if buckets and self.dispatcher.max_batch > 1:
+                bkw = dict(kwargs,
+                           seeds=list(range(self.dispatcher.max_batch)))
+                np.asarray(self.dispatcher.submit(view, bkw, ev).result())
+                sizes.append(self.dispatcher.max_batch)
+            # extra serving shapes the engine declares (engines.yaml
+            # `options: {prewarm_sizes: [[768, 768], ...]}`)
+            extra = (spec.options or {}).get("prewarm_sizes") or []
+            for hw in extra:
+                try:
+                    h, w = int(hw[0]), int(hw[1])
+                except (TypeError, ValueError, IndexError):
+                    logger.warning("bad prewarm_sizes entry %r", hw)
+                    continue
+                if (h, w) == (height, width):
+                    continue
+                skw = dict(kwargs, height=h, width=w)
+                np.asarray(self.dispatcher.submit(view, skw, ev).result())
+        except Exception as e:
+            self.prewarm_state = {"state": "failed", "engine": eid,
+                                  "error": str(e)[:200]}
+            raise
+        self.prewarm_state = {"state": "done", "engine": eid,
+                              "seconds": round(time.time() - t0, 1),
+                              "sizes": sizes}
+        logger.info("prewarm %s (%dx%d steps=%d %s batch=%s extra=%s) "
+                    "in %.1fs", eid, width, height, steps, sampler, sizes,
+                    extra, time.time() - t0)
+
+    def suggest_max_batch(self, engine_id: str, height: int = 512,
+                          width: int = 512) -> int:
+        """Device-memory batch estimate (the reference's BatchMode
+        autodetect, gyre/manager.py:202-282): the card's free memory over
+        the measured bytes one image needs."""
+        from ..utils.monitor import device_memory_stats
+
+        stats = device_memory_stats()
+        limit = max((s.get("bytes_limit") or 0) for s in stats) \
+            if stats else 0
+        limit = limit or 16 * 1024 ** 3
+        used = max((s.get("bytes_in_use") or 0) for s in stats) \
+            if stats else 0
+        free = max(limit - used, 1 << 30)
+        per_image = self._probe_bytes_per_image(engine_id, height, width)
+        return max(1, min(int(free / per_image), 64))
+
+    def _probe_bytes_per_image(self, engine_id: str, height: int,
+                               width: int) -> float:
+        """Bytes one image adds at (height, width). On the card: one CFG
+        UNet call at 2 rows (one image) run on the dispatcher's thread,
+        its peak allocation above what was allocated before it, with a
+        25 % margin for the sampler's carry and the allocator (the CUDA
+        counterpart of the JAX package's XLA memory analysis). On the CPU:
+        the JAX package's config-scaled estimate. Cached per (engine,
+        size)."""
+        key = (engine_id, height, width)
+        if key in self._probes:
+            return self._probes[key]
+        from ..models import unet as unet_mod
+
+        ms = self.pipeline(engine_id).ms
+        ucfg = ms.config.unet
+        cdt = self.compute_dtype
+        if self.device.type == "cuda":
+            def probe():
+                dev = self.device
+                x = torch.randn((2, height // 8, width // 8,
+                                 ucfg.in_channels), device=dev, dtype=cdt)
+                t = torch.full((2,), 500.0, device=dev)
+                ctx = torch.randn((2, 77, ucfg.cross_attention_dim),
+                                  device=dev, dtype=cdt)
+                torch.cuda.synchronize(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev)
+                with torch.inference_mode():
+                    unet_mod.apply(ms.unet_params, ucfg, x, t, ctx)
+                torch.cuda.synchronize(dev)
+                return torch.cuda.max_memory_allocated(dev) - base
+
+            per = 1.25 * self.dispatcher.submit(probe, {},
+                                                solo=True).result()
+        else:
+            # ~12 live level-0-sized activation maps per CFG row
+            c0 = ucfg.block_out_channels[0]
+            bytes_el = 2 if cdt == torch.bfloat16 else 4
+            per = 2 * 12 * (height // 8) * (width // 8) * c0 * bytes_el * 4
+        self._probes[key] = per
+        return per
+
+    # ------------------------------------------------------------- status
+
     def engine_ready(self, spec) -> bool:
-        return spec.id in self._modelsets
+        """Generate engines: ready only once their weights are resident.
+        Task engines load lazily on first use: ready after startup."""
+        return spec.id in self._modelsets or \
+            (self._loaded and spec.task != "generate")
 
     def status(self) -> list[dict]:
-        return [{"id": s.id, "name": s.name, "task": s.task,
-                 "ready": self.engine_ready(s), "enabled": s.enabled,
-                 "default": s.default, "visible": s.visible,
-                 "weights": "random" if s.id in self._modelsets
-                 else "pending"}
-                for s in self.specs]
+        return [
+            {"id": s.id, "name": s.name, "task": s.task,
+             "ready": self.engine_ready(s),
+             "enabled": s.enabled, "default": s.default,
+             "visible": s.visible,
+             # "real" = checkpoint loaded, "random" = random weights
+             # (loud), "pending" = not yet built
+             "weights": self._weights_kind.get(s.id, "pending")}
+            for s in self.specs
+        ]
 
 
-def load_yaml(path: str) -> list[dict]:
-    """Engine entries from a YAML file holding a list of engine dicts."""
-    import yaml
-
-    with open(path) as fh:
-        entries = yaml.safe_load(fh) or []
-    if not isinstance(entries, list):
-        raise ValueError(f"{path}: expected a list of engine entries")
-    return entries
+def manager_from_yaml(path: str, flags: dict | None = None,
+                      **kwargs) -> EngineManager:
+    entries = engines_yaml.load(path, flags or {})
+    return EngineManager(entries, **kwargs)

@@ -1,6 +1,6 @@
 """ModelSet: one engine's weights, configs, tokenizer and schedule.
 
-Counterpart of gyre_tpu/models/modelset.py. Two ways to fill one:
+Counterpart of gyre_tpu/models/modelset.py. Three ways to fill one:
 
   * ``random_modelset``: random weights at a config's full width from a
     seeded ``torch.Generator`` on the target device: linear and conv
@@ -9,15 +9,16 @@ Counterpart of gyre_tpu/models/modelset.py. Two ways to fill one:
     N(0, 0.01^2).
   * ``from_jax_params``: the JAX package's params trees (numpy arrays),
     converted to the port's layouts leaf by leaf: linear (in, out) ->
-    (out, in), conv HWIO -> OIHW, the fused convs' HWIO kept. Any missing,
-    misshapen or unconsumed leaf raises, except the subtrees of parts not
-    ported yet (NOT_PORTED).
+    (out, in), conv HWIO -> OIHW, the fused convs' HWIO kept. Any leaf of
+    the JAX trees that the port does not consume raises.
+  * ``models/load.py``: a diffusers-layout checkpoint read from disk.
 
-Both make every leaf in the given dtype; the leaves the fused GN -> SiLU ->
-conv kernels read as f32 (the GroupNorm scale and bias in front of each
-fused conv, and its bias; ``Spec.f32``) are then cast up to f32 once.
-
-Loading real safetensors checkpoints is not ported yet.
+The bridge and the loader walk the port's spec tree through one strict
+converter, ``convert_tree``: a missing or misshapen leaf raises with its
+path. All three make every leaf in the given dtype; the leaves the fused
+GN -> SiLU -> conv kernels read as f32 (the GroupNorm scale and bias in
+front of each fused conv, and its bias; ``Spec.f32``) are then cast up to
+f32 from that value, so the three hold the same bits for the same weights.
 """
 
 from __future__ import annotations
@@ -35,11 +36,6 @@ from . import clip as clip_mod
 from . import layers as L
 from . import unet as unet_mod
 from . import vae as vae_mod
-
-# JAX params subtrees of parts the port does not run yet (VAE encoder:
-# img2img / inpaint), skipped by the bridge
-NOT_PORTED = {"vae": ("encoder", "quant_conv")}
-
 
 @dataclass
 class ModelSet:
@@ -69,16 +65,17 @@ def _leaves(tree):
         yield tree
 
 
-def _map_specs(fn, tree, path=()):
+def map_specs(fn, tree, path=()):
     """Rebuild a spec tree with fn(path, spec) at every leaf."""
     if isinstance(tree, dict):
-        return {k: _map_specs(fn, v, path + (k,)) for k, v in tree.items()}
+        return {k: map_specs(fn, v, path + (k,)) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_map_specs(fn, v, path + (i,)) for i, v in enumerate(tree)]
+        return [map_specs(fn, v, path + (i,)) for i, v in enumerate(tree)]
     return fn(path, tree)
 
 
-def _specs(cfg: configs.ModelSetConfig):
+def model_specs(cfg: configs.ModelSetConfig):
+    """(unet, vae, [text tower, ...]) spec trees of a config."""
     return (unet_mod.param_specs(cfg.unet), vae_mod.param_specs(cfg.vae),
             [clip_mod.param_specs(te) for te in cfg.text_encoders])
 
@@ -96,7 +93,7 @@ def _random_tree(specs, gen, dtype, device):
         t = torch.rand(s.shape, generator=gen, device=device)
         return ((t * 2.0 - 1.0) * bound).to(dtype)
 
-    return _map_specs(lambda _, s: _as_spec_dtype(make(s), s), specs)
+    return map_specs(lambda _, s: _as_spec_dtype(make(s), s), specs)
 
 
 def _as_spec_dtype(t, s: L.Spec):
@@ -112,7 +109,7 @@ def random_modelset(cfg: configs.ModelSetConfig, seed: int = 0,
     ``seed`` (one generator, leaves drawn in tree order)."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
-    unet_s, vae_s, text_s = _specs(cfg)
+    unet_s, vae_s, text_s = model_specs(cfg)
     with torch.inference_mode():
         unet_p = _random_tree(unet_s, gen, dtype, device)
         vae_p = _random_tree(vae_s, gen, dtype, device)
@@ -155,30 +152,59 @@ def _get(tree, path):
     return tree
 
 
-def _convert(specs, jax_tree, name: str, dtype, device, skip=()):
-    consumed = set()
+def convert_tree(specs, fetch, name: str, dtype, device):
+    """The params tree of ``specs``, each leaf ``fetch(path, spec)`` (a
+    tensor or array in the port's layout; KeyError naming what it missed
+    when the source has no such leaf) checked against its spec's shape,
+    moved to ``device``, made in ``dtype`` and, for an f32 spec, cast up
+    from that value."""
 
     def take(path, s: L.Spec):
+        where = "/".join(map(str, path))
         try:
-            a = np.asarray(_get(jax_tree, path), dtype=np.float32)
-        except (KeyError, IndexError, TypeError):
-            raise ValueError(f"{name}: JAX params have no leaf "
-                             f"{'/'.join(map(str, path))}") from None
-        if s.kind == "linear":
-            a = a.T
-        elif s.kind == "conv":
-            a = a.transpose(3, 2, 0, 1)
-        if tuple(a.shape) != s.shape:
-            raise ValueError(f"{name}: leaf {'/'.join(map(str, path))} has "
-                             f"shape {a.shape} after conversion, the port "
-                             f"expects {s.shape}")
-        consumed.add(path)
-        return _as_spec_dtype(torch.tensor(np.ascontiguousarray(a),
-                                           dtype=dtype, device=device), s)
+            t = torch.as_tensor(fetch(path, s))
+        except KeyError as e:
+            raise ValueError(f"{name}: no leaf {e.args[0]} (for "
+                             f"{where})") from None
+        if tuple(t.shape) != s.shape:
+            raise ValueError(f"{name}: leaf {where} has shape "
+                             f"{tuple(t.shape)} in the port's layout, the "
+                             f"port expects {s.shape}")
+        # a copy on the device, made in dtype there
+        t = t.to(device, copy=True).to(dtype).contiguous()
+        return _as_spec_dtype(t, s)
 
-    out = _map_specs(take, specs)
-    left = [p for p in _jax_leaf_paths(jax_tree)
-            if p not in consumed and not (p and p[0] in skip)]
+    return map_specs(take, specs)
+
+
+def round_f32_leaves(tree, specs, dtype):
+    """The tree with each f32-spec leaf rounded to ``dtype`` and cast up
+    again, as every ModelSet holds them (after arithmetic on the leaves,
+    e.g. a model mix)."""
+    def fix(path, s: L.Spec):
+        t = _get(tree, path)
+        return t.to(dtype).float() if s.f32 else t
+
+    return map_specs(fix, specs)
+
+
+def _from_jax(specs, jax_tree, name: str, dtype, device):
+    consumed = set()
+
+    def fetch(path, s: L.Spec):
+        try:
+            a = np.array(_get(jax_tree, path), dtype=np.float32)
+        except (KeyError, IndexError, TypeError):
+            raise KeyError("/".join(map(str, path))) from None
+        consumed.add(path)
+        if s.kind == "linear":
+            return a.T
+        if s.kind == "conv":
+            return a.transpose(3, 2, 0, 1)
+        return a
+
+    out = convert_tree(specs, fetch, name, dtype, device)
+    left = [p for p in _jax_leaf_paths(jax_tree) if p not in consumed]
     if left:
         raise ValueError(f"{name}: JAX params leaves the port does not "
                          f"consume: {['/'.join(map(str, p)) for p in left]}")
@@ -190,14 +216,13 @@ def from_jax_params(unet_params, vae_params, text_params,
                     device="cuda", engine_id: str = "from_jax") -> ModelSet:
     """The JAX package's params trees (numpy or array-likes) -> ModelSet."""
     device = torch.device(device)
-    unet_s, vae_s, text_s = _specs(config)
+    unet_s, vae_s, text_s = model_specs(config)
     if len(text_params) != len(text_s):
         raise ValueError(f"{len(text_params)} text towers given, config "
                          f"has {len(text_s)}")
-    unet_p = _convert(unet_s, unet_params, "unet", dtype, device)
-    vae_p = _convert(vae_s, vae_params, "vae", dtype, device,
-                     skip=NOT_PORTED["vae"])
-    text_p = [_convert(s, tp, f"text_encoder[{i}]", dtype, device)
+    unet_p = _from_jax(unet_s, unet_params, "unet", dtype, device)
+    vae_p = _from_jax(vae_s, vae_params, "vae", dtype, device)
+    text_p = [_from_jax(s, tp, f"text_encoder[{i}]", dtype, device)
               for i, (s, tp) in enumerate(zip(text_s, text_params))]
     return ModelSet(config=config, unet_params=unet_p, vae_params=vae_p,
                     text_params=text_p, tokenizer=FallbackTokenizer(),

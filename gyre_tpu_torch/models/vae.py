@@ -3,9 +3,9 @@
 Counterpart of gyre_tpu/models/vae.py, ``decode`` only. Every resnet's
 GN -> SiLU -> conv3x3 (eps 1e-6) goes through the fused kernels K2a/K2b and
 the mid-block single-head attention (d = 512 at full width) through the
-flash kernel K1. The encoder (img2img, inpaint) is not ported yet: its
-params, with ``quant_conv``, are not part of the port's tree
-(modelset.NOT_PORTED).
+flash kernel K1. The params tree holds the whole autoencoder, encoder and
+``quant_conv`` too, so a loaded checkpoint is held and exported whole;
+``encode`` (img2img, inpaint) is not ported yet.
 """
 
 from __future__ import annotations
@@ -29,15 +29,35 @@ def _resnet_specs(c_in, c_out):
     return p
 
 
+def _attn_specs(c):
+    return {"norm": L.norm_spec(c),
+            **{n: L.linear_spec(c, c) for n in ("q", "k", "v", "out")}}
+
+
 def param_specs(cfg: VAEConfig) -> Params:
     chs = cfg.block_out_channels
     lc = cfg.latent_channels
+    enc: Params = {"conv_in": L.conv_spec(3, 3, cfg.in_channels, chs[0])}
+    blocks = []
+    c_prev = chs[0]
+    for lvl, c_out in enumerate(chs):
+        blk = {"resnets": [_resnet_specs(c_prev if i == 0 else c_out, c_out)
+                           for i in range(cfg.layers_per_block)]}
+        if lvl < len(chs) - 1:
+            blk["downsample"] = L.conv_spec(3, 3, c_out, c_out)
+        blocks.append(blk)
+        c_prev = c_out
+    enc["down"] = blocks
+    enc["mid"] = {"res1": _resnet_specs(chs[-1], chs[-1]),
+                  "attn": _attn_specs(chs[-1]),
+                  "res2": _resnet_specs(chs[-1], chs[-1])}
+    enc["norm_out"] = L.norm_spec(chs[-1])
+    enc["conv_out"] = L.conv_spec(3, 3, chs[-1], 2 * lc)
+
     dec: Params = {"conv_in": L.conv_spec(3, 3, lc, chs[-1])}
     dec["mid"] = {
         "res1": _resnet_specs(chs[-1], chs[-1]),
-        "attn": {"norm": L.norm_spec(chs[-1]),
-                 **{n: L.linear_spec(chs[-1], chs[-1])
-                    for n in ("q", "k", "v", "out")}},
+        "attn": _attn_specs(chs[-1]),
         "res2": _resnet_specs(chs[-1], chs[-1]),
     }
     blocks = []
@@ -52,7 +72,9 @@ def param_specs(cfg: VAEConfig) -> Params:
     dec["up"] = blocks
     dec["norm_out"] = L.norm_spec(chs[0])
     dec["conv_out"] = L.conv_spec(3, 3, chs[0], cfg.out_channels)
-    return {"decoder": dec, "post_quant_conv": L.conv_spec(1, 1, lc, lc)}
+    return {"encoder": enc, "decoder": dec,
+            "quant_conv": L.conv_spec(1, 1, 2 * lc, 2 * lc),
+            "post_quant_conv": L.conv_spec(1, 1, lc, lc)}
 
 
 def _resnet(p, x, groups):

@@ -15,8 +15,9 @@ sampler's carry makes a chunked run compute exactly what one run does.
 Device work runs under ``torch.inference_mode()`` in the helpers below;
 the generator yields outside them. Not ported yet, and raising when asked
 for: img2img, inpaint, depth2img, hints, hires fix, grafting, CLIP
-guidance, tiling, token merging, sequential CFG, brownian noise and the
-tiled VAE decode of outputs past 1280 px.
+guidance, tiling, token merging, sequential CFG, brownian noise, the
+tiled VAE decode of outputs past 1280 px, and txt2img on the 9-channel
+UNets of inpaint and depth engines.
 """
 
 from __future__ import annotations
@@ -184,6 +185,12 @@ class UnifiedPipeline:
                   chunk_steps: int = 0,
                   return_latents: bool = False,
                   output_dtype: str | None = None):
+        ucfg = self.ms.config.unet
+        if ucfg.in_channels != ucfg.out_channels:
+            raise NotImplementedError(
+                f"txt2img on a {ucfg.in_channels}-channel UNet (an inpaint "
+                "or depth engine) needs its mode, which is not ported to "
+                "gyre_tpu_torch yet (ROADMAP C2)")
         if noise_type != "normal":
             raise NotImplementedError(
                 f"noise_type {noise_type!r} is not ported to gyre_tpu_torch "

@@ -1,7 +1,9 @@
 """EnginesService: engine listing with capability report.
 
-Counterpart of gyre_tpu/services/engines.py. Reports only the samplers the
-port runs, and no prompt artifacts (txt2img takes text prompts only).
+Counterpart of gyre_tpu/services/engines.py: every visible engine of the
+requested task group, as the JAX servicer lists them. Generate engines
+report only the samplers the port runs, and no prompt artifacts (txt2img
+takes text prompts only).
 """
 
 from __future__ import annotations
@@ -11,6 +13,16 @@ from ..generated import generation_pb2 as gpb
 from ..pipeline.samplers import (PORTED_SAMPLERS, PROTO_SAMPLERS,
                                  SAMPLER_PROPERTIES)
 from .exception_to_grpc import exception_to_grpc
+
+_TASK_TO_GROUP = {
+    "generate": epb.GENERATE,
+    "upscaler": epb.UPSCALE,
+    "upscale": epb.UPSCALE,
+    "util": epb.UTILITY,
+    "utility": epb.UTILITY,
+    "hinter": epb.HINTER,
+    "depth": epb.HINTER,
+}
 
 _NOISE = {"normal": gpb.SAMPLER_NOISE_NORMAL,
           "brownian": gpb.SAMPLER_NOISE_BROWNIAN}
@@ -40,17 +52,20 @@ class EnginesServiceServicer:
 
     @exception_to_grpc()
     def ListEngines(self, request: epb.ListEnginesRequest, context):
-        if request.task_group != epb.GENERATE:
-            return epb.Engines(engine=[])
+        want = request.task_group  # proto3 default GENERATE
         engines = []
         for spec in self.manager.specs:
-            if not spec.visible or spec.task != "generate":
+            if not spec.visible or \
+                    _TASK_TO_GROUP.get(spec.task, epb.GENERATE) != want:
                 continue
             info = epb.EngineInfo(
                 id=spec.id, name=spec.name, description=spec.description,
                 owner="gyre-tpu",
+                # as status(): generate engines are ready once their
+                # weights are resident, task engines after startup
                 ready=spec.enabled and self.manager.engine_ready(spec),
                 type=epb.PICTURE, task=spec.task)
-            info.supported_samplers.extend(_engine_samplers())
+            if spec.task == "generate":
+                info.supported_samplers.extend(_engine_samplers())
             engines.append(info)
         return epb.Engines(engine=engines)

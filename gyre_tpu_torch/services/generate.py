@@ -31,8 +31,10 @@ from .exception_to_grpc import exception_to_grpc
 logger = logging.getLogger(__name__)
 
 MAX_SEED = 2 ** 32 - 1
-# engine `options:` the port applies as request defaults
-_ENGINE_OPTIONS = ("sampler", "karras_rho", "warmup_lms", "ddim_cutoff")
+# engine `options:` the port applies as request defaults, and the sizes
+# the manager's prewarm runs
+_ENGINE_OPTIONS = ("sampler", "karras_rho", "warmup_lms", "ddim_cutoff",
+                   "prewarm_sizes")
 
 
 @dataclass

@@ -1,12 +1,13 @@
 """The port's copies of the JAX package's JAX-free modules against their
 originals: the model configs, the fallback tokenizer, the coalescing
-dispatcher, the exception -> gRPC status map, the protocol stubs and the
-service registration. The port imports none of gyre_tpu, so these copies
+dispatcher, the exception -> gRPC status map, the protocol stubs, the
+service registration, the engines.yaml DSL and the weight resolver. The port imports none of gyre_tpu, so these copies
 must not drift; each test runs the same input through both and compares
 exactly (no arithmetic is involved, so there is no tolerance).
 """
 
 import dataclasses
+import os
 import threading
 
 import grpc
@@ -14,14 +15,18 @@ import numpy as np
 import pytest
 
 from gyre_tpu.generated import generation_pb2 as jpb
+from gyre_tpu.manager import engines_yaml as jyaml
 from gyre_tpu.manager import scheduler as jsched
+from gyre_tpu.manager import weights as jweights
 from gyre_tpu.models import configs as jconfigs
 from gyre_tpu.pipeline import tokenizer as jtok
 from gyre_tpu.services import exception_to_grpc as jexc
 from gyre_tpu.services import registration as jreg
 from gyre_tpu_torch.generated import engines_pb2 as tepb
 from gyre_tpu_torch.generated import generation_pb2 as tpb
+from gyre_tpu_torch.manager import engines_yaml as tyaml
 from gyre_tpu_torch.manager import scheduler as tsched
+from gyre_tpu_torch.manager import weights as tweights
 from gyre_tpu_torch.models import configs as tconfigs
 from gyre_tpu_torch.pipeline import tokenizer as ttok
 from gyre_tpu_torch.services import exception_to_grpc as texc
@@ -213,3 +218,79 @@ def test_registration_names_match():
     for name in ("GENERATION_SERVICE", "ENGINES_SERVICE",
                  "DASHBOARD_SERVICE"):
         assert getattr(treg, name) == getattr(jreg, name)
+
+
+# ------------------------------------------------------- engines.yaml DSL
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("path,flags", [
+    ("config/engines.yaml", {}),
+    ("config/engines.yaml", {"hbm4": True, "vram4": True}),
+    ("tests/fixtures/engines.test.yaml", {}),
+], ids=["engines", "engines_hbm4", "fixture"])
+def test_engines_yaml_entries_match(path, flags):
+    port = tyaml.load(os.path.join(REPO, path), flags)
+    assert port == jyaml.load(os.path.join(REPO, path), flags)
+    assert any(e.get("id") for e in port)
+
+
+def test_engines_yaml_templates_match(tmp_path):
+    """An !include, a template with params and an id overlay."""
+    (tmp_path / "templates.yaml").write_text(
+        "- {id: base, abstract: true, task: generate,\n"
+        "   model: {path: '{{dir}}', seed: '{{seed:0}}'}}\n")
+    (tmp_path / "engines.yaml").write_text(
+        "- !include templates.yaml\n"
+        "- {id: a, template: base, params: {dir: org/a}}\n"
+        "- {id: a, default: true}\n")
+    port = tyaml.load(str(tmp_path / "engines.yaml"))
+    assert port == jyaml.load(str(tmp_path / "engines.yaml"))
+    assert port == [{"id": "a", "task": "generate", "default": True,
+                     "model": {"path": "org/a", "seed": "0"}}]
+
+
+# --------------------------------------------------------- weight resolver
+
+
+def _chain(mod, root, ref, **kw):
+    r = mod.WeightResolver(local_dirs=[str(root / "weights")],
+                           hf_cache=str(root), download_cache=str(root / "dl"),
+                           **kw)
+    return [(c.kind, c.path, c.exists) for c in r.candidates(ref)]
+
+
+def test_weight_resolver_chains_match(tmp_path):
+    (tmp_path / "weights" / "org--model--fp16").mkdir(parents=True)
+    (tmp_path / "weights" / "model").mkdir()
+    (tmp_path / "hub" / "models--org--hub" / "snapshots" / "abc").mkdir(
+        parents=True)
+    for ref in ("org/model", "org/model@main", "org/hub", "nobody/none",
+                str(tmp_path / "weights"), "./rel",
+                "https://civitai.com/api/download/models/567",
+                "https://example.com/w.safetensors"):
+        for kw in ({}, {"prefer_fp16": False}, {"allow_network": True}):
+            assert _chain(tweights, tmp_path, ref, **kw) == \
+                _chain(jweights, tmp_path, ref, **kw), (ref, kw)
+    port = tweights.WeightResolver(local_dirs=[str(tmp_path / "weights")])
+    assert port.resolve("org/model") == str(
+        tmp_path / "weights" / "org--model--fp16")
+
+
+def test_select_repo_files_match():
+    files = ["model_index.json", "unet/config.json",
+             "unet/diffusion_pytorch_model.bin",
+             "unet/diffusion_pytorch_model.safetensors",
+             "unet/diffusion_pytorch_model.fp16.safetensors",
+             "vae/diffusion_pytorch_model.bin", "text_encoder/model.fp16.bin",
+             "text_encoder/model.safetensors", "tokenizer/merges.txt",
+             "safety_checker/model.onnx", "README.md", "v1-5.ckpt",
+             "v1-5-pruned.safetensors", "v1-5-pruned.fp16.safetensors"]
+    for fp16 in (True, False):
+        assert tweights.select_repo_files(files, fp16) == \
+            jweights.select_repo_files(files, fp16)
+        assert tweights.pick_single_checkpoint(files, fp16) == \
+            jweights.pick_single_checkpoint(files, fp16)
+    assert tweights.parse_civitai_ref("https://civitai.com/models/12") == \
+        jweights.parse_civitai_ref("https://civitai.com/models/12")
