@@ -7,7 +7,8 @@
 
 Phases, each printing one JSON object per line:
 
-  1. env       card name and power limit (nvidia-smi), torch and CUDA
+  1. env       card name and power limit (nvidia-smi), torch, CUDA and
+               Pillow versions
   2. build     nvcc builds every kernel of the path from csrc/ (seconds)
   3. kernels   each hand-written kernel against its plain PyTorch version
                at every SD1.5 main-path shape, called through the entry
@@ -26,7 +27,21 @@ Phases, each printing one JSON object per line:
                images/s, peak memory and what phase 3 left allocated
   5. serve     EngineManager + the coalescing dispatcher under concurrent
                requests, then two Generate calls over gRPC
-  6. weights   full-width SD1.5 from disk: a random ModelSet saved as a
+  6. http      the server as main builds it (server.serve: the gRPC
+               server behind its access-token interceptor, with the
+               dashboard, and the HTTP router) on the sd15 random preset
+               (seed 0, bf16), at the request of phase 4 with explicit
+               seeds: REST text-to-image as JSON and as PNG (the PNG one's
+               launches must be 641 / 908 / 908), an AsyncGenerate polled
+               with AsyncResult against a synchronous Generate of the same
+               seed (within 1 uint8 level) and an AsyncCancel,
+               ChainGenerate with two RETURN stages, Generate over gRPC-Web
+               (the port's grpc_web_client), the accept list "image/webp,
+               image/png" (a WebP, or UNIMPLEMENTED where Pillow is
+               missing), and requests without the token refused
+               (UNAUTHENTICATED over gRPC, 401 and 403 over HTTP); one line
+               per route with its wall seconds and bytes
+  7. weights   full-width SD1.5 from disk: a random ModelSet saved as a
                diffusers checkpoint (f32 safetensors), served through an
                engines.yaml in the DSL (an !include, a template with
                params) by server.build_manager and the WeightResolver:
@@ -43,6 +58,7 @@ script exits non-zero; without a CUDA device it exits non-zero at once.
 from __future__ import annotations
 
 import functools
+import importlib.metadata
 import json
 import subprocess
 import sys
@@ -128,8 +144,12 @@ def phase_env():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
+    try:
+        pillow = importlib.metadata.version("pillow")
+    except importlib.metadata.PackageNotFoundError:
+        pillow = None                  # WebP answers are then UNIMPLEMENTED
     emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda,
+          "cuda": torch.version.cuda, "pillow": pillow,
           "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
     return smi
@@ -586,6 +606,296 @@ def phase_grpc(manager, engine_id: str = "sd15", seeds=(200, 201),
         server.stop(0).wait()
 
 
+HTTP_TOKEN = "smoke-token"
+
+
+def _png_pixels(data: bytes):
+    """uint8 [H,W,3] of a PNG written by the port's encoder (one zlib
+    stream of filter-0 RGB scanlines), so that no image library is
+    needed."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    if not data.startswith(b"\x89PNG\r\n\x1a\n"):
+        raise AssertionError("not a PNG")
+    off, idat, width, height = 8, b"", 0, 0
+    while off < len(data):
+        (length,), tag = struct.unpack(">I", data[off:off + 4]), \
+            data[off + 4:off + 8]
+        chunk = data[off + 8:off + 8 + length]
+        if tag == b"IHDR":
+            width, height = struct.unpack(">II", chunk[:8])
+            if chunk[8:10] != b"\x08\x02":
+                raise AssertionError("PNG is not 8-bit RGB")
+        elif tag == b"IDAT":
+            idat += chunk
+        off += 12 + length
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        height, 1 + 3 * width)
+    if raw[:, 0].any():
+        raise AssertionError("PNG uses scanline filters")
+    return raw[:, 1:].reshape(height, width, 3)
+
+
+def _image_artifacts(answers, mime: str = "image/png"):
+    from gyre_tpu_torch.services.generate import pb
+
+    arts = [a for ans in answers for a in ans.artifacts
+            if a.type == pb.ARTIFACT_IMAGE]
+    if not arts or any(a.mime != mime for a in arts):
+        raise AssertionError(f"expected {mime} artifacts, got "
+                             f"{[a.mime for a in arts]}")
+    return arts
+
+
+def phase_http():
+    """The server's gRPC and HTTP surface on the card (module docstring,
+    phase 6)."""
+    import base64
+    import importlib.util
+    import os
+    import shutil
+    import tempfile
+    import urllib.error
+    import urllib.request
+
+    import grpc
+    import numpy as np
+    import torch
+
+    from gyre_tpu_torch import _build, server
+    from gyre_tpu_torch.generated import engines_pb2 as epb
+    from gyre_tpu_torch.http.grpc_web_client import WebChannel
+    from gyre_tpu_torch.services.generate import pb
+
+    tmp = tempfile.mkdtemp(prefix="gyre-smoke-http-")
+    cfg = os.path.join(tmp, "smoke-http.yaml")
+    with open(cfg, "w") as fh:
+        fh.write("- {id: sd15, default: true, model: {preset: sd15, "
+                 "seed: 0}}\n")
+    args = server.parse_args(
+        ["--enginecfg", cfg, "--grpc_port", "0", "--http_port", "0",
+         "--access_token", HTTP_TOKEN, "--cache_path",
+         os.path.join(tmp, "cache")])
+    manager = server.build_manager(args)
+    serving = None
+    try:
+        manager.load_engines()
+        serving = server.serve(args, manager)
+        base = f"http://localhost:{serving.http_port}"
+        auth = {"Authorization": f"Bearer {HTTP_TOKEN}"}
+
+        def route(name, t0, nbytes, **extra):
+            emit({"phase": "http", "route": name,
+                  "wall_s": time.perf_counter() - t0, "bytes": nbytes,
+                  **extra})
+
+        def post(path, body, headers):
+            req = urllib.request.Request(base + path, data=body,
+                                         headers=headers, method="POST")
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                return resp.status, resp.headers["Content-Type"], \
+                    resp.read()
+
+        # 1. REST text-to-image, as JSON and as PNG (launches counted)
+        rest = json.dumps({
+            "text_prompts": [{"text": REQUEST["prompt"]},
+                             {"text": REQUEST["negative_prompt"],
+                              "weight": -1.0}],
+            "height": REQUEST["height"], "width": REQUEST["width"],
+            "steps": REQUEST["steps"], "cfg_scale": REQUEST["guidance_scale"],
+            "sampler": "K_DPMPP_2M", "seed": 400}).encode()
+        path = "/v1/generation/sd15/text-to-image"
+        t0 = time.perf_counter()
+        status, ctype, body = post(path, rest, {
+            **auth, "Content-Type": "application/json",
+            "Accept": "application/json"})
+        arts = json.loads(body)["artifacts"]
+        json_png = base64.b64decode(arts[0]["base64"])
+        route("rest_json", t0, len(body), status=status)
+        if status != 200 or ctype != "application/json" or \
+                len(arts) != 1 or arts[0]["seed"] != 400:
+            raise AssertionError(f"REST JSON answered {status} {ctype} "
+                                 f"{[a['seed'] for a in arts]}")
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        status, ctype, png = post(path, rest, {
+            **auth, "Content-Type": "application/json",
+            "Accept": "image/png"})
+        launches = dict(_build.launches)
+        route("rest_png", t0, len(png), status=status, launches=launches,
+              expected=EXPECTED_LAUNCHES)
+        if status != 200 or ctype != "image/png":
+            raise AssertionError(f"REST PNG answered {status} {ctype}")
+        if launches != EXPECTED_LAUNCHES:
+            raise AssertionError(f"REST request: launch counts {launches} "
+                                 f"!= {EXPECTED_LAUNCHES}")
+        img = _png_pixels(png)
+        diff = int(np.abs(img.astype(int) -
+                          _png_pixels(json_png).astype(int)).max())
+        shape = (REQUEST["height"], REQUEST["width"], 3)
+        if img.shape != shape or img.min() == img.max() or diff > 1:
+            raise AssertionError(f"REST images {img.shape}, equal seeds "
+                                 f"differ by {diff}")
+
+        channel = grpc.insecure_channel(f"localhost:{serving.grpc_port}")
+        meta = [("authorization", f"Bearer {HTTP_TOKEN}")]
+
+        def rpc(kind, method, req_cls, resp_cls):
+            return getattr(channel, kind)(
+                f"/gooseai.GenerationService/{method}",
+                request_serializer=req_cls.SerializeToString,
+                response_deserializer=resp_cls.FromString)
+
+        generate = rpc("unary_stream", "Generate", pb.Request, pb.Answer)
+
+        # 2. Async round trip against a synchronous Generate; a cancel
+        start = rpc("unary_unary", "AsyncGenerate", pb.Request,
+                    pb.AsyncHandle)
+        poll = rpc("unary_unary", "AsyncResult", pb.AsyncHandle,
+                   pb.AsyncAnswer)
+        cancel = rpc("unary_unary", "AsyncCancel", pb.AsyncHandle,
+                     pb.AsyncCancelAnswer)
+        t0 = time.perf_counter()
+        handle = start(_generate_request(401), metadata=meta, timeout=60)
+        answers, polls = [], 0
+        while True:
+            res = poll(handle, metadata=meta, timeout=60)
+            answers.extend(res.answer)
+            polls += 1
+            if res.complete:
+                break
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError("AsyncResult never completed")
+        async_png = _image_artifacts(answers)[0].binary
+        route("async", t0, len(async_png), polls=polls,
+              status=res.status.message)
+        t0 = time.perf_counter()
+        sync_png = _image_artifacts(list(generate(
+            _generate_request(401), metadata=meta, timeout=600)))[0].binary
+        diff = int(np.abs(_png_pixels(async_png).astype(int) -
+                          _png_pixels(sync_png).astype(int)).max())
+        route("grpc_sync", t0, len(sync_png), async_max_abs_diff_uint8=diff)
+        if diff > 1:
+            raise AssertionError(f"Async and sync images differ by {diff}")
+        t0 = time.perf_counter()
+        second = start(_generate_request(402), metadata=meta, timeout=60)
+        cancel(second, metadata=meta, timeout=60)
+        try:
+            poll(second, metadata=meta, timeout=60)
+            raise AssertionError("a cancelled handle still answers")
+        except grpc.RpcError as e:
+            if e.code() != grpc.StatusCode.NOT_FOUND:
+                raise
+        route("async_cancel", t0, 0, after_cancel="NOT_FOUND")
+
+        # 3. ChainGenerate: two RETURN stages
+        chain = pb.ChainRequest(request_id="smoke-chain")
+        for seed in (403, 404):
+            stage = chain.stage.add(id=f"stage-{seed}")
+            stage.request.CopyFrom(_generate_request(seed))
+            stage.on_status.add().action.append(pb.STAGE_ACTION_RETURN)
+        t0 = time.perf_counter()
+        answers = list(rpc("unary_stream", "ChainGenerate", pb.ChainRequest,
+                           pb.Answer)(chain, metadata=meta, timeout=600))
+        pngs = [a.binary for a in _image_artifacts(answers)]
+        route("chain", t0, sum(map(len, pngs)), answers=len(answers),
+              seeds=[a.artifacts[0].seed for a in answers])
+        if len(answers) != 2 or [a.artifacts[0].seed for a in answers] != \
+                [403, 404]:
+            raise AssertionError(f"ChainGenerate gave {len(answers)} answers")
+
+        # 4. gRPC-Web through the HTTP port
+        web = WebChannel(base, token=HTTP_TOKEN)
+        t0 = time.perf_counter()
+        answers = list(web.unary_stream(
+            "/gooseai.GenerationService/Generate",
+            pb.Request.SerializeToString, pb.Answer.FromString)(
+                _generate_request(405)))
+        web_png = _image_artifacts(answers)[0].binary
+        route("grpc_web", t0, len(web_png))
+        if _png_pixels(web_png).shape != shape:
+            raise AssertionError("gRPC-Web image has the wrong shape")
+
+        # 5. WebP by the accept list, or UNIMPLEMENTED without Pillow
+        pillow = importlib.util.find_spec("PIL") is not None
+        req = _generate_request(406)
+        req.accept = "image/webp, image/png"
+        t0 = time.perf_counter()
+        if pillow:
+            webp = _image_artifacts(list(generate(
+                req, metadata=meta, timeout=600)), "image/webp")[0].binary
+            wall = time.perf_counter() - t0
+            # the servicer's own encode timer, read through /status
+            with urllib.request.urlopen(urllib.request.Request(
+                    base + "/status", headers=auth), timeout=60) as resp:
+                timings = json.loads(resp.read())["timings"]
+            emit({"phase": "http", "route": "webp", "wall_s": wall,
+                  "bytes": len(webp), "pillow": True, "answer": "image/webp",
+                  "encode_last_ms": timings["encode"]["last_ms"],
+                  "generate_last_ms": timings["generate"]["last_ms"]})
+            if webp[:4] != b"RIFF" or webp[8:12] != b"WEBP":
+                raise AssertionError("the WebP artifact is not RIFF/WEBP")
+        else:
+            try:
+                list(generate(req, metadata=meta, timeout=600))
+                raise AssertionError("WebP answered without Pillow")
+            except grpc.RpcError as e:
+                if e.code() != grpc.StatusCode.UNIMPLEMENTED:
+                    raise
+            route("webp", t0, 0, pillow=False, answer="UNIMPLEMENTED")
+
+        # 6. without the token: refused on both servers
+        t0 = time.perf_counter()
+        try:
+            channel.unary_unary(
+                "/gooseai.EnginesService/ListEngines",
+                request_serializer=epb.ListEnginesRequest.SerializeToString,
+                response_deserializer=epb.Engines.FromString)(
+                    epb.ListEnginesRequest(), timeout=60)
+            raise AssertionError("gRPC answered without the token")
+        except grpc.RpcError as e:
+            if e.code() != grpc.StatusCode.UNAUTHENTICATED:
+                raise
+        refused = {}
+        for name, path, body in (("status", "/status", None),
+                                 ("rest", "/v1/generation/sd15/"
+                                  "text-to-image", rest)):
+            try:
+                urllib.request.urlopen(urllib.request.Request(
+                    base + path, data=body,
+                    headers={"Content-Type": "application/json"}),
+                    timeout=60)
+                raise AssertionError(f"HTTP {path} answered without the "
+                                     "token")
+            except urllib.error.HTTPError as e:
+                refused[name] = e.code
+        route("no_token", t0, 0, grpc="UNAUTHENTICATED", http=refused)
+        if refused != {"status": 401, "rest": 403}:
+            raise AssertionError(f"HTTP without the token: {refused}")
+        with urllib.request.urlopen(urllib.request.Request(
+                base + "/status", headers=auth), timeout=60) as resp:
+            status = json.loads(resp.read())
+        disp = status["dispatcher"]
+        emit({"phase": "http", "route": "status",
+              "engines": status["engines"], "timings": status["timings"],
+              **{k: disp[k] for k in ("batches", "coalesced_requests",
+                                      "interleaved_chunks", "padded_rows",
+                                      "watchdog")}})
+        if [e["ready"] for e in status["engines"]] != [True]:
+            raise AssertionError(f"/status engines {status['engines']}")
+        channel.close()
+    finally:
+        if serving is not None:
+            serving.stop(0)
+        manager.dispatcher.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+        del manager
+        torch.cuda.empty_cache()
+
+
 # the engines.yaml of phase_weights, as users write one: an !include of a
 # template file, and an engine instantiating the template with params
 WEIGHTS_TEMPLATES = """\
@@ -607,7 +917,7 @@ WEIGHTS_ENGINES = """\
 
 def phase_weights():
     """Full-width SD1.5 saved to disk and served from there (module
-    docstring, phase 6). The checkpoint directory is removed at the end."""
+    docstring, phase 7). The checkpoint directory is removed at the end."""
     import os
     import shutil
     import tempfile
@@ -824,6 +1134,7 @@ def main() -> int:
     kernels = phase_kernels()
     launches = phase_pipeline()
     phase_serve()
+    phase_http()
     phase_weights()
     # ms, plain_ms, library_ms, bound_ms: sums over the phase-3 shapes of
     # the median times and of the bounds; the *_per_call keys weight each

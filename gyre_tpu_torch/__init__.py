@@ -8,8 +8,9 @@ hand-written CUDA kernels (csrc/, built at first use by _build.py).
 It imports nothing of gyre_tpu either: the JAX-free modules it needs
 (models/configs.py, pipeline/tokenizer.py, manager/scheduler.py,
 manager/engines_yaml.py, manager/weights.py, models/ldm.py's rename
-tables, services/exception_to_grpc.py and registration.py,
-utils/timing.py, the protocol stubs under generated/) are copies, at the
+tables, services/exception_to_grpc.py, registration.py and dashboard.py,
+http/, utils/{timing,cache,resources,logview,debug_recorder}.py, the
+protocol stubs and the OpenAPI document under generated/) are copies, at the
 same relative paths, held to their originals by
 tests/test_torch_vendored.py and tests/test_torch_load.py.
 """

@@ -142,7 +142,6 @@ class EngineManager:
         # guards lazy model/pipeline construction only; device work is
         # serialised (and batched) by the dispatcher's thread
         self._load_lock = threading.RLock()
-        self._loaded = False
         # max merged rows == batch_max: also the shape prewarm runs
         self.dispatcher = CoalescingDispatcher(max_batch=max(batch_max, 1),
                                                interleave=interleave,
@@ -162,7 +161,6 @@ class EngineManager:
             logger.info("engine %s loaded (%.1f MB params, %s weights)",
                         spec.id, ms.param_bytes() / 1e6,
                         self._weights_kind.get(spec.id, "pending"))
-        self._loaded = True
 
     @property
     def weight_resolver(self):
@@ -463,10 +461,17 @@ class EngineManager:
     # ------------------------------------------------------------- status
 
     def engine_ready(self, spec) -> bool:
-        """Generate engines: ready only once their weights are resident.
-        Task engines load lazily on first use: ready after startup."""
-        return spec.id in self._modelsets or \
-            (self._loaded and spec.task != "generate")
+        """Ready when its weights are resident and the port has a path for
+        it: a generate engine whose UNet has as many input channels as
+        output channels. A 9-channel inpainting or 5-channel depth UNet
+        needs its mode (ROADMAP C2), a task engine its pipeline (D); none
+        of those is ready, since each of their requests would answer
+        UNIMPLEMENTED."""
+        ms = self._modelsets.get(spec.id)
+        if spec.task != "generate" or ms is None:
+            return False
+        ucfg = ms.config.unet
+        return ucfg.in_channels == ucfg.out_channels
 
     def status(self) -> list[dict]:
         return [

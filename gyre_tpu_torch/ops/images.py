@@ -1,17 +1,61 @@
-"""Image encoding at the protocol boundary.
+"""Image coding at the protocol boundary.
 
-Counterpart of gyre_tpu/ops/images.py, the part the txt2img path needs:
+Counterpart of gyre_tpu/ops/images.py, the part the serving surface needs:
 ``encode_png``, a direct numpy + zlib PNG encoder (filter-0 scanlines, one
 zlib stream, tEXt/iTXt metadata chunks), byte-compatible with the JAX
-package's.
+package's and free of Pillow; ``decode_png``, ``encode_webp`` and
+``png_metadata``, which use Pillow as the JAX package's do. Where Pillow
+is not installed those three raise NotImplementedError naming it, so a
+WebP answer or an uploaded image answers UNIMPLEMENTED while PNG answers
+go on working.
 """
 
 from __future__ import annotations
 
+import io
 import struct
 import zlib
 
 import numpy as np
+
+
+def pil_image():
+    """PIL.Image, or NotImplementedError when Pillow is not installed."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise NotImplementedError(
+            "this needs the Pillow package (PIL), which is not installed "
+            "here; PNG answers do not need it") from e
+    return Image
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """bytes -> [1,H,W,C] float32 0..1 (C = 1/3/4)."""
+    img = pil_image().open(io.BytesIO(data))
+    arr = np.asarray(img).astype(np.float32) / 255.0
+    if arr.ndim == 2:
+        arr = arr[..., None]
+    return arr[None]
+
+
+def encode_webp(img: np.ndarray, quality: int = 90) -> bytes:
+    """[H,W,C] or [1,H,W,C] (uint8, or float in [0,1]) -> WebP bytes."""
+    image = pil_image()
+    if img.ndim == 4:
+        img = img[0]
+    arr = np.asarray(img)
+    if arr.dtype != np.uint8:
+        arr = (np.clip(arr, 0, 1) * 255).round().astype(np.uint8)
+    buf = io.BytesIO()
+    image.fromarray(arr).save(buf, format="WEBP", quality=quality)
+    return buf.getvalue()
+
+
+def png_metadata(data: bytes) -> dict[str, str]:
+    """The tEXt/iTXt chunks of PNG bytes."""
+    img = pil_image().open(io.BytesIO(data))
+    return dict(img.text) if hasattr(img, "text") else {}
 
 
 def _png_chunk(tag: bytes, data: bytes) -> bytes:

@@ -61,8 +61,7 @@ class EnginesServiceServicer:
             info = epb.EngineInfo(
                 id=spec.id, name=spec.name, description=spec.description,
                 owner="gyre-tpu",
-                # as status(): generate engines are ready once their
-                # weights are resident, task engines after startup
+                # as status(): resident weights and a path in the port
                 ready=spec.enabled and self.manager.engine_ready(spec),
                 type=epb.PICTURE, task=spec.task)
             if spec.task == "generate":

@@ -3,17 +3,22 @@
 Counterpart of gyre_tpu/services/generate.py. A Request carrying text
 prompts (negative prompts as negative weights), size, steps, samples,
 seeds, a sampler, cfg_scale, eta, sigma limits / karras rho and clip_layer
-runs through the shared dispatcher and streams one Answer with a PNG
-artifact per image. Every other request feature (image, mask, LoRA,
-embedding and hint artifacts, churn, schedule strength, CLIP guidance,
-masked-area init, hires fix, tiling) and the ChainGenerate / Async methods
-answer UNIMPLEMENTED; none is ignored silently. The safety checker is not
-ported (the JAX package flags nothing without trained checker weights).
+runs through the shared dispatcher and streams one Answer per image, as
+PNG or WebP by the request's accept list (``negotiate_mime``).
+ChainGenerate runs its stages with RETURN routing and ``on_status``
+targets, and the Async trio runs a request in the background, as the JAX
+servicer does. Every other request feature (image, mask, LoRA, embedding
+and hint artifacts, so also ChainGenerate's PASS routing; churn, schedule
+strength, CLIP guidance, masked-area init, hires fix, tiling) answers
+UNIMPLEMENTED, naming its ROADMAP item where one is planned; none is
+ignored silently. The safety checker is not ported (ROADMAP C6): as the
+JAX package without trained checker weights, nothing is flagged.
 """
 
 from __future__ import annotations
 
 import logging
+import queue
 import threading
 import time
 import uuid as uuidlib
@@ -59,9 +64,16 @@ class ExtractedParams:
     clip_layer: int = 0
 
 
-def _unported(feature: str):
+# the ROADMAP item that ports each kind of artifact prompt; image and mask
+# artifacts (init images, inpainting, ChainGenerate's PASS routing) are C2
+_ARTIFACT_ITEMS = {pb.ARTIFACT_LORA: "C3", pb.ARTIFACT_TOKEN_EMBEDDING: "C3",
+                   pb.ARTIFACT_HINT_IMAGE: "C4"}
+
+
+def _unported(feature: str, item: str | None = None):
+    where = f"ROADMAP {item}" if item else "txt2img only"
     raise NotImplementedError(
-        f"{feature} is not ported to gyre_tpu_torch yet (txt2img only)")
+        f"{feature} is not ported to gyre_tpu_torch yet ({where})")
 
 
 def extract_params(request: pb.Request) -> ExtractedParams:
@@ -70,6 +82,12 @@ def extract_params(request: pb.Request) -> ExtractedParams:
     pos, neg = [], []
     for prompt in request.prompt:
         which = prompt.WhichOneof("prompt")
+        if which == "artifact":
+            # image and mask artifacts are also what ChainGenerate's PASS
+            # routing injects
+            kind = prompt.artifact.type
+            _unported(f"{pb.ArtifactType.Name(kind)} prompts",
+                      _ARTIFACT_ITEMS.get(kind, "C2"))
         if which != "text":
             _unported(f"prompt {which or 'without content'}")
         weight = 1.0
@@ -105,9 +123,9 @@ def extract_params(request: pb.Request) -> ExtractedParams:
         p.sampler_set = True
     for sp in img.parameters:
         if sp.HasField("schedule"):
-            _unported("schedule (img2img strength)")
+            _unported("schedule (img2img strength)", "C2")
         if sp.HasField("guidance"):
-            _unported("CLIP guidance")
+            _unported("CLIP guidance", "C6")
         if not sp.HasField("sampler"):
             continue
         s = sp.sampler
@@ -116,7 +134,7 @@ def extract_params(request: pb.Request) -> ExtractedParams:
         if s.HasField("eta"):
             p.eta = s.eta
         if s.HasField("churn"):
-            _unported("churn")
+            _unported("churn", "C1")
         if s.HasField("sigma"):
             if s.sigma.HasField("sigma_min"):
                 p.sigma_min = s.sigma.sigma_min
@@ -128,11 +146,11 @@ def extract_params(request: pb.Request) -> ExtractedParams:
             p.noise_type = ("brownian" if s.noise_type ==
                             pb.SAMPLER_NOISE_BROWNIAN else "normal")
     if img.HasField("masked_area_init"):
-        _unported("masked_area_init")
+        _unported("masked_area_init", "C2")
     if img.HasField("hires") and img.hires.enable:
-        _unported("hires fix")
+        _unported("hires fix", "C2")
     if img.tiling or img.tiling_x or img.tiling_y:
-        _unported("tiling")
+        _unported("tiling", "C2")
     return p
 
 
@@ -146,26 +164,70 @@ def fill_seeds(p: ExtractedParams) -> list[int]:
     return seeds[:p.samples]
 
 
+def negotiate_mime(accept: str) -> str:
+    """Request.accept (HTTP-style media-range list with optional q
+    values) -> the answer mime type, image/png or image/webp; PNG when
+    nothing matches."""
+    if not accept:
+        return "image/png"
+    best, best_q = "image/png", 0.0
+    for part in accept.split(","):
+        fields = part.strip().split(";")
+        media = fields[0].strip().lower()
+        q = 1.0
+        for f in fields[1:]:
+            k, _, v = f.partition("=")
+            if k.strip() == "q":
+                try:
+                    q = float(v)
+                except ValueError:
+                    q = 0.0
+        for cand in ("image/png", "image/webp"):
+            if media in (cand, "image/*", "*/*") and q > best_q:
+                best, best_q = cand, q
+    return best
+
+
 def image_to_artifact(img: np.ndarray, *, index: int, seed: int,
-                      metadata: dict | None = None) -> pb.Artifact:
-    data = I.encode_png(img, metadata)
+                      metadata: dict | None = None,
+                      mime: str = "image/png",
+                      finish_reason=pb.NULL) -> pb.Artifact:
+    data = I.encode_png(img, metadata) if mime == "image/png" else \
+        I.encode_webp(img)
     return pb.Artifact(
-        id=index, type=pb.ARTIFACT_IMAGE, mime="image/png", index=index,
+        id=index, type=pb.ARTIFACT_IMAGE, mime=mime, index=index,
         seed=seed, uuid=str(uuidlib.uuid4()), binary=data, size=len(data),
-        finish_reason=pb.NULL)
+        finish_reason=finish_reason)
+
+
+class AsyncContext:
+    """Bookkeeping of one AsyncGenerate request."""
+
+    DEADLINE = 600.0
+
+    def __init__(self):
+        self.queue: queue.Queue = queue.Queue()
+        self.stop_event = threading.Event()
+        self.done = False
+        self.deadline = None
+        self.progress = ""  # human-readable status (AsyncStatus.message)
+
+    def finish(self):
+        self.done = True
+        self.deadline = time.monotonic() + self.DEADLINE
 
 
 class GenerationServiceServicer:
-    def __init__(self, manager, batch_max: int = 4):
+    def __init__(self, manager, batch_max: int = 4, debug_recorder=None):
         self.manager = manager
         self.batch_max = batch_max
+        self.debug_recorder = debug_recorder
+        self._async: dict[str, AsyncContext] = {}
+        self._async_lock = threading.Lock()
 
     def _run_request(self, request: pb.Request, stop_event=None):
         """Yield (image uint8 [H,W,3], seed, index, metadata)."""
         p = extract_params(request)
-        if request.accept and "image/png" not in request.accept and \
-                "*" not in request.accept:
-            _unported(f"answer type {request.accept!r} (PNG only)")
         engine_id = p.engine_id or self.manager.default_engine_id()
         opts = self.manager.spec(engine_id).options or {}
         unknown = sorted(set(opts) - set(_ENGINE_OPTIONS))
@@ -214,16 +276,22 @@ class GenerationServiceServicer:
                     yield imgs[j], seed, index, md
                     index += 1
 
-    @exception_to_grpc()
-    def Generate(self, request: pb.Request, context):
-        stop_event = threading.Event()
-        if context is not None and hasattr(context, "add_callback"):
-            context.add_callback(stop_event.set)
+    def _answers(self, request: pb.Request, stop_event):
+        """The Answers of one request, one image each."""
+        mime = negotiate_mime(request.accept)
+        if mime == "image/webp":
+            I.pil_image()          # before the card runs, not after
+        if self.debug_recorder is not None:
+            with self.debug_recorder.record("generate") as store:
+                store.store("engine", request.engine_id)
+                store.store("request_id", request.request_id)
+                store.store("prompts", [p.text for p in request.prompt
+                                        if p.WhichOneof("prompt") == "text"])
         recv = int(time.time())
         for img, seed, index, md in self._run_request(request, stop_event):
             with STATS.timer("encode"):
                 artifact = image_to_artifact(img, index=index, seed=seed,
-                                             metadata=md)
+                                             metadata=md, mime=mime)
             yield pb.Answer(
                 answer_id=f"{request.request_id}-{index}",
                 request_id=request.request_id,
@@ -231,17 +299,111 @@ class GenerationServiceServicer:
                 artifacts=[artifact])
 
     @exception_to_grpc()
-    def ChainGenerate(self, request, context):
-        _unported("ChainGenerate")
+    def Generate(self, request: pb.Request, context):
+        stop_event = threading.Event()
+        if context is not None and hasattr(context, "add_callback"):
+            context.add_callback(stop_event.set)
+        yield from self._answers(request, stop_event)
 
     @exception_to_grpc()
-    def AsyncGenerate(self, request, context):
-        _unported("AsyncGenerate")
+    def ChainGenerate(self, request: pb.ChainRequest, context):
+        """Staged generation with RETURN and PASS routing: a stage's
+        artifacts are returned, or passed to its ``on_status`` targets as
+        init images (which answer UNIMPLEMENTED until C2)."""
+        stop_event = threading.Event()
+        if context is not None and hasattr(context, "add_callback"):
+            context.add_callback(stop_event.set)
+        results: dict[str, list[pb.Artifact]] = {}
+        for stage in request.stage:
+            req = pb.Request()
+            req.CopyFrom(stage.request)
+            req.request_id = req.request_id or request.request_id
+            for art in results.pop(stage.id, []):
+                prompt = req.prompt.add()
+                prompt.artifact.CopyFrom(art)
+                prompt.parameters.init = True
+            produced = []
+            for answer in self._answers(req, stop_event):
+                produced.extend(answer.artifacts)
+            returned = []
+            routed = False
+            for on_status in stage.on_status:
+                if pb.STAGE_ACTION_RETURN in on_status.action:
+                    returned = produced
+                if on_status.HasField("target"):
+                    results.setdefault(on_status.target, []).extend(produced)
+                    routed = True
+            if not stage.on_status and not routed:
+                returned = produced
+            if returned:
+                yield pb.Answer(request_id=request.request_id,
+                                answer_id=f"{request.request_id}-{stage.id}",
+                                artifacts=returned)
 
     @exception_to_grpc()
-    def AsyncResult(self, request, context):
-        _unported("AsyncResult")
+    def AsyncGenerate(self, request: pb.Request, context):
+        """Start ``request`` in the background and return its handle. As in
+        the JAX servicer, AsyncCancel stops the queueing of its answers;
+        the request itself runs to its end."""
+        ctx = AsyncContext()
+        handle = str(uuidlib.uuid4())
+        with self._async_lock:
+            self._gc_async()
+            self._async[handle] = ctx
+
+        def run():
+            try:
+                n = 0
+                for answer in self._answers(request, None):
+                    if ctx.stop_event.is_set():
+                        break
+                    ctx.queue.put(answer)
+                    n += 1
+                    ctx.progress = f"{n} artifact(s) ready"
+            except Exception as e:  # noqa: BLE001 - reported in the status
+                logger.exception("async generate failed")
+                ctx.progress = f"error: {e}"
+            finally:
+                ctx.finish()
+
+        threading.Thread(target=run, daemon=True, name="async-generate"
+                         ).start()
+        return pb.AsyncHandle(request_id=request.request_id,
+                              async_handle=handle)
 
     @exception_to_grpc()
-    def AsyncCancel(self, request, context):
-        _unported("AsyncCancel")
+    def AsyncResult(self, handle: pb.AsyncHandle, context):
+        ctx = self._async.get(handle.async_handle)
+        if ctx is None:
+            raise KeyError(f"unknown async handle {handle.async_handle}")
+        answers = []
+        try:
+            answers.append(ctx.queue.get(timeout=0.5))
+            while True:
+                answers.append(ctx.queue.get_nowait())
+        except queue.Empty:
+            pass
+        complete = ctx.done and ctx.queue.empty()
+        if complete:
+            with self._async_lock:
+                self._async.pop(handle.async_handle, None)
+        out = pb.AsyncAnswer(answer=answers, complete=complete)
+        if ctx.progress:
+            out.status.message = ctx.progress
+        return out
+
+    @exception_to_grpc()
+    def AsyncCancel(self, handle: pb.AsyncHandle, context):
+        with self._async_lock:
+            ctx = self._async.pop(handle.async_handle, None)
+        if ctx is not None:
+            ctx.stop_event.set()
+        return pb.AsyncCancelAnswer()
+
+    def _gc_async(self):
+        """Drop finished requests past their deadline (under the lock)."""
+        now = time.monotonic()
+        for k in list(self._async):
+            ctx = self._async[k]
+            if ctx.done and ctx.deadline and now > ctx.deadline:
+                del self._async[k]

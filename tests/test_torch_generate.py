@@ -1,0 +1,279 @@
+"""The port's generate servicer against the JAX package's, on the CPU at the
+SD_TEST preset in f32: answer-type negotiation, the Pillow image helpers,
+Generate's answers, the Async trio and ChainGenerate.
+
+The two packages draw their noise differently (ROADMAP A2), so the same
+seed gives different pixels: the servicers are compared by the structure
+of their answers (count, mime, seeds, indices, finish reasons, metadata
+keys), and everything else exactly.
+"""
+
+import gzip
+import io
+import json
+import os
+import sys
+import time
+
+import grpc
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from gyre_tpu.generated import generation_pb2 as jpb
+from gyre_tpu.http.router import AbortError as JAbortError
+from gyre_tpu.http.router import FakeGrpcContext as JContext
+from gyre_tpu.manager.manager import EngineManager as JManager
+from gyre_tpu.ops import images as jimages
+from gyre_tpu.services import generate as jgen
+from gyre_tpu_torch.generated import generation_pb2 as tpb
+from gyre_tpu_torch.http.router import AbortError as TAbortError
+from gyre_tpu_torch.http.router import FakeGrpcContext as TContext
+from gyre_tpu_torch.manager.manager import EngineManager as TManager
+from gyre_tpu_torch.ops import images as timages
+from gyre_tpu_torch.services import generate as tgen
+from gyre_tpu_torch.utils.debug_recorder import DebugRecorder
+
+ENGINES = [{"id": "tiny", "name": "Tiny", "default": True,
+            "model": "preset/test"}]
+
+
+# ------------------------------------------------------ answer negotiation
+
+
+@pytest.mark.parametrize("accept", [
+    "", "image/png", "image/webp", "image/webp, image/png",
+    "image/png;q=1.0, image/webp;q=0.5", "image/png;q=0.2, image/webp",
+    "image/*", "*/*", "application/json", "IMAGE/WEBP ; q=0.9",
+    "image/webp;q=junk, image/png;q=0.1", "text/html, image/webp;q=0",
+    ",,;", "image/webp;q=0.8, */*;q=0.9"])
+def test_negotiate_mime_matches_jax(accept):
+    assert tgen.negotiate_mime(accept) == jgen.negotiate_mime(accept)
+
+
+# --------------------------------------------------------- image helpers
+
+
+def _images():
+    rng = np.random.default_rng(0)
+    rgb = rng.integers(0, 256, (1, 24, 40, 3), dtype=np.uint8)
+    rgba = rng.integers(0, 256, (17, 9, 4), dtype=np.uint8)
+    gray = rng.integers(0, 256, (1, 8, 8, 1), dtype=np.uint8)
+    flt = rng.random((16, 16, 3)).astype(np.float32)
+    return {"rgb": rgb, "rgba": rgba, "gray": gray, "float": flt}
+
+
+@pytest.mark.parametrize("name", ["rgb", "rgba", "gray", "float"])
+def test_image_helpers_match_jax(name):
+    img = _images()[name]
+    meta = {"prompt": "a boat", "seed": "7", "note": "naïve ☃"}
+    png = timages.encode_png(img, meta)
+    assert png == jimages.encode_png(img, meta)
+    np.testing.assert_array_equal(timages.decode_png(png),
+                                  jimages.decode_png(png))
+    assert timages.png_metadata(png) == jimages.png_metadata(png) == meta
+    if img.shape[-1] != 1:          # PIL writes no 1-channel WebP
+        assert timages.encode_webp(img) == jimages.encode_webp(img)
+    # a PNG written by PIL, with its adaptive scanline filters
+    arr = img[0] if img.ndim == 4 else img
+    if arr.dtype != np.uint8:
+        arr = (arr * 255).round().astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(arr.squeeze(-1) if arr.shape[-1] == 1 else arr).save(
+        buf, format="PNG")
+    np.testing.assert_array_equal(timages.decode_png(buf.getvalue()),
+                                  jimages.decode_png(buf.getvalue()))
+
+
+def test_without_pillow_png_works_and_the_rest_is_unimplemented(
+        monkeypatch):
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    img = _images()["rgb"]
+    assert timages.encode_png(img).startswith(b"\x89PNG")
+    for call in (lambda: timages.encode_webp(img),
+                 lambda: timages.decode_png(b"\x89PNG"),
+                 lambda: timages.png_metadata(b"\x89PNG")):
+        with pytest.raises(NotImplementedError, match="Pillow"):
+            call()
+
+
+# -------------------------------------------------------------- servicers
+
+
+@pytest.fixture(scope="module")
+def port():
+    m = TManager(ENGINES, device="cpu", compute_dtype=torch.float32,
+                 batch_max=2, gather_ms=0.0)
+    m.load_engines()
+    yield tgen.GenerationServiceServicer(m, batch_max=2)
+    m.dispatcher.stop()
+
+
+@pytest.fixture(scope="module")
+def ref():
+    m = JManager(ENGINES, compute_dtype=jnp.float32, batch_max=2)
+    m.load_engines()
+    yield jgen.GenerationServiceServicer(m, batch_max=2)
+    m.dispatcher.stop()
+
+
+def _request(pb, seed=7, samples=1, accept=""):
+    req = pb.Request(engine_id="tiny", request_id=f"r{seed}", accept=accept)
+    req.prompt.add().text = "a boat"
+    neg = req.prompt.add()
+    neg.text = "blurry"
+    neg.parameters.weight = -1.0
+    img = req.image
+    img.height, img.width, img.steps, img.samples = 64, 64, 2, samples
+    img.seed.append(seed)
+    img.transform.diffusion = pb.SAMPLER_K_DPMPP_2M
+    img.parameters.add().sampler.cfg_scale = 7.5
+    return req
+
+
+def _structure(answers):
+    out = []
+    for ans in answers:
+        for a in ans.artifacts:
+            meta = sorted(timages.png_metadata(a.binary)) \
+                if a.mime == "image/png" else None
+            out.append((ans.answer_id, ans.request_id, a.id, a.type, a.mime,
+                        a.index, a.seed, a.finish_reason, a.size ==
+                        len(a.binary), a.binary[:4], meta))
+    return out
+
+
+@pytest.mark.parametrize("samples,accept", [
+    (1, ""), (3, "image/webp, image/png"),
+    (1, "image/png;q=0.5, image/webp;q=0.9")])
+def test_generate_matches_jax_in_structure(port, ref, samples, accept):
+    t = list(port.Generate(_request(tpb, 11, samples, accept), TContext()))
+    j = list(ref.Generate(_request(jpb, 11, samples, accept), JContext()))
+    assert _structure(t) == _structure(j)
+    assert len(t) == samples
+    for ans in t:
+        img = timages.decode_png(ans.artifacts[0].binary) \
+            if ans.artifacts[0].mime == "image/png" else None
+        assert img is None or img.shape == (1, 64, 64, 3)
+
+
+def _poll(servicer, handle, ctx_cls):
+    answers, deadline = [], time.monotonic() + 120
+    while time.monotonic() < deadline:
+        res = servicer.AsyncResult(handle, ctx_cls())
+        answers.extend(res.answer)
+        if res.complete:
+            return answers, res.status.message
+    raise AssertionError("AsyncResult never completed")
+
+
+def test_async_returns_the_sync_bytes(port, ref):
+    handle = port.AsyncGenerate(_request(tpb, 21), TContext())
+    answers, status = _poll(port, handle, TContext)
+    sync = list(port.Generate(_request(tpb, 21), TContext()))
+    assert [a.artifacts[0].binary for a in answers] == \
+        [a.artifacts[0].binary for a in sync]
+    assert status == "1 artifact(s) ready"
+    assert handle.async_handle not in port._async     # popped when read
+    jhandle = ref.AsyncGenerate(_request(jpb, 21), JContext())
+    janswers, jstatus = _poll(ref, jhandle, JContext)
+    assert _structure(answers) == _structure(janswers)
+    assert status == jstatus
+
+
+@pytest.mark.parametrize("which", ["port", "jax"])
+def test_async_cancel_unknown_handle_and_gc(port, ref, which):
+    servicer, pb, ctx, abort, mod = (
+        (port, tpb, TContext, TAbortError, tgen) if which == "port" else
+        (ref, jpb, JContext, JAbortError, jgen))
+    handle = servicer.AsyncGenerate(_request(pb, 31), ctx())
+    servicer.AsyncCancel(pb.AsyncHandle(async_handle=handle.async_handle),
+                         ctx())
+    assert handle.async_handle not in servicer._async
+    context = ctx()
+    with pytest.raises(abort):
+        servicer.AsyncResult(handle, context)
+    assert context.code == grpc.StatusCode.NOT_FOUND
+    # a finished request past its deadline is dropped, the rest stay
+    old, running = mod.AsyncContext(), mod.AsyncContext()
+    old.finish()
+    old.deadline = time.monotonic() - 1.0
+    with servicer._async_lock:
+        servicer._async.update({"old": old, "running": running})
+        servicer._gc_async()
+        kept = set(servicer._async) & {"old", "running"}
+        servicer._async.pop("running")
+    assert kept == {"running"}
+
+
+def _chain(pb, pass_to=None):
+    chain = pb.ChainRequest(request_id="chain")
+    for i, seed in enumerate((41, 42)):
+        stage = chain.stage.add(id=f"s{i}")
+        stage.request.CopyFrom(_request(pb, seed))
+        on = stage.on_status.add()
+        if pass_to and i == 0:
+            on.action.append(pb.STAGE_ACTION_PASS)
+            on.target = pass_to
+        else:
+            on.action.append(pb.STAGE_ACTION_RETURN)
+    return chain
+
+
+def test_chain_return_matches_jax(port, ref):
+    t = list(port.ChainGenerate(_chain(tpb), TContext()))
+    j = list(ref.ChainGenerate(_chain(jpb), JContext()))
+    assert _structure(t) == _structure(j)
+    assert [a.answer_id for a in t] == ["chain-s0", "chain-s1"]
+    assert [a.artifacts[0].seed for a in t] == [41, 42]
+
+
+def test_chain_pass_is_unimplemented_naming_c2(port):
+    context = TContext()
+    with pytest.raises(TAbortError):
+        list(port.ChainGenerate(_chain(tpb, pass_to="s1"), context))
+    assert context.code == grpc.StatusCode.UNIMPLEMENTED
+    assert "ROADMAP C2" in context.details
+
+
+@pytest.mark.parametrize("kind,item", [
+    ("ARTIFACT_IMAGE", "C2"), ("ARTIFACT_MASK", "C2"),
+    ("ARTIFACT_LORA", "C3"), ("ARTIFACT_HINT_IMAGE", "C4")])
+def test_artifact_prompts_name_their_item(kind, item):
+    req = _request(tpb)
+    req.prompt.add().artifact.type = getattr(tpb, kind)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        tgen.extract_params(req)
+
+
+def test_webp_without_pillow_is_unimplemented(port, monkeypatch):
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    context = TContext()
+    with pytest.raises(TAbortError):
+        list(port.Generate(_request(tpb, accept="image/webp"), context))
+    assert context.code == grpc.StatusCode.UNIMPLEMENTED
+    assert "Pillow" in context.details
+    png = list(port.Generate(_request(tpb), TContext()))
+    assert png[0].artifacts[0].binary.startswith(b"\x89PNG")
+
+
+def test_debug_recorder_matches_jax(port, ref, tmp_path):
+    stored = []
+    for name, servicer, pb, ctx in (("port", port, tpb, TContext),
+                                    ("jax", ref, jpb, JContext)):
+        path = str(tmp_path / name)
+        servicer.debug_recorder = DebugRecorder(path)
+        try:
+            list(servicer.Generate(_request(pb, 51), ctx()))
+        finally:
+            servicer.debug_recorder = None
+        (f,) = os.listdir(path)
+        with gzip.open(os.path.join(path, f), "rt") as fh:
+            record = json.load(fh)
+        record.pop("time")
+        stored.append(record)
+    assert stored[0] == stored[1] == {
+        "label": "generate", "engine": "tiny", "request_id": "r51",
+        "prompts": ["a boat", "blurry"]}

@@ -77,7 +77,8 @@ def test_status_reports_weight_provenance(weight_root):
         assert status["random"]["weights"] == "random"
         assert status["off"]["weights"] == "pending"
         assert status["loaded"]["ready"] and not status["off"]["ready"]
-        assert status["up"]["ready"]          # task engines: after startup
+        # task engines: not ready, the port has no task pipeline (D)
+        assert not status["up"]["ready"]
         ref = tload.load_modelset(os.path.join(weight_root, "org--tiny"),
                                   tconfigs.SD_TEST, dtype=torch.float32,
                                   device="cpu")
@@ -311,7 +312,9 @@ def test_shipped_config_serves(served):
         response_deserializer=epb.Engines.FromString)(
             epb.ListEnginesRequest(), timeout=30).engine
     ready = {e.id: e.ready for e in engines}
-    assert ready[SD15] and ready[INPAINT]
+    # the 9-channel engine's weights are resident, but its mode is not
+    # ported (C2): not ready
+    assert ready[SD15] and not ready[INPAINT]
     assert not ready["stable-diffusion-v2-1"]          # disabled
 
 
@@ -321,6 +324,89 @@ def test_nine_channel_engine_is_unimplemented(served):
         list(_generate(channel)(_request(INPAINT), timeout=60))
     assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED
     assert "C2" in err.value.details()
+
+
+def _ready_by_rpc_and_status(manager):
+    """{id: ready} from ListEngines over every task group, and from the
+    HTTP router's /status."""
+    import json
+    import urllib.request
+
+    from gyre_tpu_torch.http.router import make_http_server, \
+        start_http_server
+    from gyre_tpu_torch.services.engines import EnginesServiceServicer
+
+    engines = EnginesServiceServicer(manager)
+    listed = {}
+    for group in epb.EngineTaskGroup.values():
+        for e in engines.ListEngines(epb.ListEnginesRequest(
+                task_group=group), None).engine:
+            listed[e.id] = e.ready
+    http = make_http_server("localhost", 0, manager=manager,
+                            generation=None, engines=engines)
+    start_http_server(http)
+    try:
+        with urllib.request.urlopen(
+                f"http://localhost:{http.server_address[1]}/status",
+                timeout=30) as resp:
+            status = {e["id"]: e["ready"]
+                      for e in json.loads(resp.read())["engines"]}
+    finally:
+        http.shutdown()
+        http.server_close()
+    return listed, status
+
+
+def test_task_engine_is_not_ready(weight_root):
+    m = _manager([{"id": "gen", "model": "org/tiny", "default": True},
+                  {"id": "up", "task": "upscaler"},
+                  {"id": "depth", "task": "depth"}], weight_root)
+    try:
+        m.load_engines()
+        listed, status = _ready_by_rpc_and_status(m)
+        assert listed == status == {"gen": True, "up": False,
+                                    "depth": False}
+        with pytest.raises(NotImplementedError, match="ROADMAP D"):
+            m.modelset("up")
+    finally:
+        m.dispatcher.stop()
+
+
+def test_nine_channel_engine_is_not_ready(weight_root):
+    m = _manager([{"id": "gen", "model": "org/tiny", "default": True},
+                  {"id": "inpaint", "model": "org/tiny-inpaint"}],
+                 weight_root)
+    try:
+        m.load_engines()
+        assert {s["id"]: s["weights"] for s in m.status()} == \
+            {"gen": "real", "inpaint": "real"}        # resident, and yet
+        listed, status = _ready_by_rpc_and_status(m)
+        assert listed == status == {"gen": True, "inpaint": False}
+    finally:
+        m.dispatcher.stop()
+
+
+def test_shipped_config_reports_only_servable_engines_ready(shipped,
+                                                            weight_root):
+    """Every enabled engine of the shipped config/engines.yaml: only the
+    4-channel SD 1.5 engine is ready; the 9-channel inpainting engine and
+    every task engine are not."""
+    manager = tserver.build_manager(tserver.parse_args(
+        ["--enginecfg", shipped, "--device", "cpu", "--dtype", "float32",
+         "--weight_root", weight_root]))
+    try:
+        manager.load_engines()
+        listed, status = _ready_by_rpc_and_status(manager)
+        enabled = {s.id for s in manager.specs if s.enabled}
+        tasks = {s.id for s in manager.specs
+                 if s.enabled and s.task != "generate"}
+        assert {"esrgan-x4", "midas-depth", "mlsd-lines", "dexined-edge",
+                "lineart"} <= tasks
+        assert {i for i in enabled if status[i]} == {SD15}
+        assert {i for i in enabled if listed.get(i)} == {SD15}
+        assert INPAINT in enabled and not status[INPAINT]
+    finally:
+        manager.dispatcher.stop()
 
 
 def test_prewarm_reaches_done(served):
@@ -342,9 +428,12 @@ def test_prewarm_reaches_done(served):
 def test_save_safetensors_exports_for_the_jax_loader(shipped, weight_root,
                                                      tmp_path):
     out = str(tmp_path / "export")
+    cache = str(tmp_path / "cache")
     tserver.main(["--enginecfg", shipped, "--device", "cpu", "--dtype",
                   "float32", "--weight_root", weight_root,
+                  "--cache_path", cache,
                   "--save_safetensors", f"{INPAINT}:{out}"])
+    assert not os.path.exists(cache)  # an export builds no cache
     back = jload.load_modelset(out, jconfigs.SD_TEST)
     assert back.config.unet.in_channels == 9
     ref = tload.load_modelset(os.path.join(weight_root, "org--tiny-inpaint"),
