@@ -25,9 +25,21 @@ Phases, each printing one JSON object per line:
                with each call's host numbers (time to queue its work,
                the queuing thread's CPU time and preemptions), batch-8
                images/s, peak memory and what phase 3 left allocated
-  5. serve     EngineManager + the coalescing dispatcher under concurrent
+  5. samplers  every sampler function of the port (15, behind 20 names)
+               on the same SD1.5 engine as phase 4, 20 steps, batch 1,
+               each with its model calls counted (a wrapper around the
+               denoiser) and the kernels' launches checked against them
+               (K1 32 x calls + 1, K2a and K2b 44 x calls + 28), finite
+               latents, a non-constant image, and its 10-step-chunked run
+               equal to its one run in every bit; the knobs (brownian
+               noise on k_dpmpp_sde, churn 0.5 on k_heun, eta 0.5 on
+               ddim) the same way; batch-8 images/s of k_euler_ancestral
+               (per-step noise) beside k_dpmpp_2m; then one Generate
+               over gRPC per proto sampler enum (19, 10 steps) answering
+               a PNG, and ListEngines listing 19 samplers
+  6. serve     EngineManager + the coalescing dispatcher under concurrent
                requests, then two Generate calls over gRPC
-  6. http      the server as main builds it (server.serve: the gRPC
+  7. http      the server as main builds it (server.serve: the gRPC
                server behind its access-token interceptor, with the
                dashboard, and the HTTP router) on the sd15 random preset
                (seed 0, bf16), at the request of phase 4 with explicit
@@ -41,7 +53,7 @@ Phases, each printing one JSON object per line:
                missing), and requests without the token refused
                (UNAUTHENTICATED over gRPC, 401 and 403 over HTTP); one line
                per route with its wall seconds and bytes
-  7. weights   full-width SD1.5 from disk: a random ModelSet saved as a
+  8. weights   full-width SD1.5 from disk: a random ModelSet saved as a
                diffusers checkpoint (f32 safetensors), served through an
                engines.yaml in the DSL (an !include, a template with
                params) by server.build_manager and the WeightResolver:
@@ -498,6 +510,176 @@ def phase_pipeline():
     return launches
 
 
+# the sampler functions, each under one of its names, with its model calls
+# for an n-step ramp: one a step; two a step but the last where the update
+# takes a second evaluation; PLMS's first-step corrector adds one;
+# dpm_adaptive makes two an iteration and a final denoise
+SAMPLER_RUNS = [
+    ("k_euler", "n"), ("k_euler_ancestral", "n"), ("k_heun", "2n-1"),
+    ("k_dpm_2", "2n-1"), ("k_dpm_2_ancestral", "2n-1"), ("k_lms", "n"),
+    ("plms", "n+1"), ("k_dpmpp_2s_ancestral", "2n-1"), ("k_dpmpp_2m", "n"),
+    ("k_dpmpp_sde", "2n-1"), ("dpmsolverpp_3order", "n"), ("ddim", "n"),
+    ("ddpm", "n"), ("dpm_fast", "n"), ("dpm_adaptive", "2k+1"),
+]
+# the request knobs, each on a sampler that reads it
+KNOB_RUNS = [
+    ("k_dpmpp_sde", "2n-1", {"noise_type": "brownian"}),
+    ("k_heun", "2n-1", {"churn": 0.5}),
+    ("ddim", "n", {"eta": 0.5}),
+]
+
+
+def _sampler_run(pipe, sampler, nfe_rule, knobs):
+    """One sampler at the phase-4 request, batch 1: (result line, list of
+    failed checks). Model calls are counted by a wrapper around the
+    pipeline's denoiser, the latents read at the VAE's input."""
+    import torch
+
+    from gyre_tpu_torch import _build
+
+    calls, latents = [], []
+    make_denoiser, decode = pipe._denoiser, pipe.vae_decode
+
+    def counting_denoiser(*args, **kwargs):
+        dn = make_denoiser(*args, **kwargs)
+
+        def counted(x, sigma):
+            calls.append(sigma)
+            return dn(x, sigma)
+
+        return counted
+
+    def recording_decode(lat):
+        latents.append(lat)
+        return decode(lat)
+
+    pipe._denoiser, pipe.vae_decode = counting_denoiser, recording_decode
+    try:
+        kw = dict(REQUEST, sampler=sampler, output_dtype="uint8", **knobs)
+        _build.reset_launches()
+        img, host = _call(pipe, [1], kw)
+        launches = dict(_build.launches)
+        nfe = len(calls)
+        chunked, chunked_host = _call(
+            pipe, [1], dict(kw, chunk_steps=10, stop_event=threading.Event()))
+    finally:
+        del pipe._denoiser, pipe.vae_decode
+    n = STEPS
+    iterations = (nfe - 1) // 2
+    expect_nfe = {"n": n, "2n-1": 2 * n - 1, "n+1": n + 1,
+                  "2k+1": 2 * iterations + 1}[nfe_rule]
+    expect = {"flash_attention": 32 * nfe + 1, "gn_stats": 44 * nfe + 28,
+              "gn_silu_conv3x3": 44 * nfe + 28}
+    lat = latents[0]
+    line = {"phase": "samplers", "sampler": sampler, "knobs": knobs,
+            "steps": n, "nfe": nfe, "nfe_rule": nfe_rule,
+            "launches": launches, "expected_launches": expect,
+            "chunked_equal": bool(torch.equal(img, chunked)),
+            "latents_finite": bool(lat.isfinite().all()),
+            "latent_std": float(lat.float().std()),
+            "image_min": int(img.min()), "image_max": int(img.max()),
+            "wall_s": host["wall_s"], "chunked_wall_s": chunked_host["wall_s"]}
+    if nfe_rule == "2k+1":
+        line["iterations"] = iterations
+    failed = [f"{sampler} {knobs}: {what}" for what, bad in (
+        (f"{nfe} model calls, expected {expect_nfe}", nfe != expect_nfe),
+        (f"launches {launches} != {expect}", launches != expect),
+        ("10-step chunks differ from one run", not line["chunked_equal"]),
+        ("latents not finite", not line["latents_finite"]),
+        ("constant image", line["image_min"] == line["image_max"]),
+        (f"image {tuple(img.shape)} {img.dtype}",
+         tuple(img.shape) != (1, 512, 512, 3) or img.dtype != torch.uint8))
+        if bad]
+    return line, failed
+
+
+def phase_samplers():
+    """Every sampler function on full-width SD1.5, checked by its model
+    calls and launches; the knobs; per-step noise at batch 8; then every
+    proto sampler enum over gRPC and ListEngines."""
+    import grpc
+    import torch
+
+    from gyre_tpu_torch.generated import engines_pb2 as epb
+    from gyre_tpu_torch.manager.manager import EngineManager
+    from gyre_tpu_torch.server import build_server
+    from gyre_tpu_torch.services.generate import pb
+
+    manager = EngineManager(
+        [{"id": "sd15", "default": True,
+          "model": {"preset": "sd15", "seed": 0}}],
+        device="cuda", batch_max=4, gather_ms=0.0)
+    try:
+        manager.load_engines()
+        pipe = manager.pipeline("sd15")
+        failed = []
+        for sampler, rule, knobs in [(s, r, {}) for s, r in SAMPLER_RUNS] \
+                + KNOB_RUNS:
+            line, bad = _sampler_run(pipe, sampler, rule, knobs)
+            emit(line)
+            failed += bad
+
+        # per-step noise at the dispatcher's merged batch: both samplers
+        # make 20 model calls, so the gap is what the noise costs
+        kw = dict(REQUEST, output_dtype="uint8", chunk_steps=10,
+                  stop_event=threading.Event())
+        rates = {"k_dpmpp_2m": [], "k_euler_ancestral": []}
+        hosts = {name: [] for name in rates}
+        for name in rates:                                   # warm-up
+            _call(pipe, range(8), dict(kw, sampler=name))
+        for i, name in enumerate(["k_dpmpp_2m", "k_euler_ancestral",
+                                  "k_euler_ancestral", "k_dpmpp_2m"]):
+            _, host = _call(pipe, range(8 * (i + 1), 8 * (i + 2)),
+                            dict(kw, sampler=name))
+            rates[name].append(8 / host["wall_s"])
+            hosts[name].append(host)
+        emit({"phase": "samplers", "check": "batch8_noise_cost",
+              "images_per_s": rates, "host": hosts})
+
+        server, port = build_server(manager, 0, batch_max=4,
+                                    host="localhost")
+        try:
+            channel = grpc.insecure_channel(f"localhost:{port}")
+            call = channel.unary_stream(
+                "/gooseai.GenerationService/Generate",
+                request_serializer=pb.Request.SerializeToString,
+                response_deserializer=pb.Answer.FromString)
+            walls = {}
+            for enum in pb.DiffusionSampler.values():
+                req = _generate_request(400 + enum % 100)
+                req.image.transform.diffusion = enum
+                req.image.steps = 10
+                t0 = time.perf_counter()
+                arts = [a for ans in call(req, timeout=600)
+                        for a in ans.artifacts
+                        if a.type == pb.ARTIFACT_IMAGE]
+                walls[pb.DiffusionSampler.Name(enum)] = \
+                    time.perf_counter() - t0
+                if len(arts) != 1 or arts[0].mime != "image/png" or \
+                        not arts[0].binary.startswith(b"\x89PNG\r\n\x1a\n"):
+                    failed.append(f"Generate with sampler {enum} returned "
+                                  "no PNG")
+            listed = channel.unary_unary(
+                "/gooseai.EnginesService/ListEngines",
+                request_serializer=epb.ListEnginesRequest.SerializeToString,
+                response_deserializer=epb.Engines.FromString)(
+                    epb.ListEnginesRequest(), timeout=60).engine
+            samplers = [s.sampler for s in listed[0].supported_samplers]
+            emit({"phase": "samplers", "check": "grpc", "steps": 10,
+                  "wall_s": walls, "listed_samplers": len(samplers)})
+            if sorted(samplers) != sorted(pb.DiffusionSampler.values()):
+                failed.append(f"ListEngines lists {samplers}")
+            channel.close()
+        finally:
+            server.stop(0).wait()
+        if failed:
+            raise AssertionError("samplers: " + "; ".join(failed))
+    finally:
+        manager.dispatcher.stop()
+        del manager
+        torch.cuda.empty_cache()
+
+
 def _generate_request(seed: int, engine_id: str = "sd15"):
     from gyre_tpu_torch.services.generate import pb
 
@@ -652,7 +834,7 @@ def _image_artifacts(answers, mime: str = "image/png"):
 
 def phase_http():
     """The server's gRPC and HTTP surface on the card (module docstring,
-    phase 6)."""
+    phase 7)."""
     import base64
     import importlib.util
     import os
@@ -917,7 +1099,7 @@ WEIGHTS_ENGINES = """\
 
 def phase_weights():
     """Full-width SD1.5 saved to disk and served from there (module
-    docstring, phase 7). The checkpoint directory is removed at the end."""
+    docstring, phase 8). The checkpoint directory is removed at the end."""
     import os
     import shutil
     import tempfile
@@ -1133,6 +1315,7 @@ def main() -> int:
                                  "not add up to EXPECTED_LAUNCHES")
     kernels = phase_kernels()
     launches = phase_pipeline()
+    phase_samplers()
     phase_serve()
     phase_http()
     phase_weights()

@@ -83,14 +83,19 @@ def build_sigmas(schedule: DiffusionSchedule, steps: int, *,
                  karras_rho: float | None = None,
                  sigma_min: float | None = None,
                  sigma_max: float | None = None,
+                 uniform_lambda: bool = False,
                  spacing: str = "linspace") -> np.ndarray:
     """The txt2img sigma ramp for a request: [steps + 1] descending, last
     0. The JAX package's grids: k-diffusion "linspace" (interpolated
-    fractional timesteps), the diffusers "leading" integer grid, or karras.
-    (img2img's truncated ramps and dpm_fast's uniform-lambda ramp wait for
-    their modes and sampler.)"""
+    fractional timesteps), the diffusers "leading" integer grid, karras,
+    or with ``uniform_lambda`` steps uniform in -log(sigma) (dpm_fast's
+    ramp; it overrides the others). (img2img's truncated ramps wait for
+    their modes.)"""
     smin = sigma_min if sigma_min else schedule.sigma_min
     smax = sigma_max if sigma_max else schedule.sigma_max
+    if uniform_lambda:
+        lam = np.linspace(-np.log(smax), -np.log(smin), steps)
+        return np.append(np.exp(-lam), 0.0)
     if karras_rho:
         return karras_ramp(smin, smax, steps, karras_rho)
     if spacing == "leading":

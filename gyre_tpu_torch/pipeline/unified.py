@@ -2,25 +2,30 @@
 
 Counterpart of gyre_tpu/pipeline/unified.py. A request runs: prompt
 encoding (CLIP, weighted and chunked prompts), initial noise from per-seed
-generators, the sampler over the CFG-wrapped UNet (parallel CFG: both
-halves in one UNet call), the VAE decode and, on request, quantisation to
-uint8 on the device.
+generators, any of the protocol's samplers over the CFG-wrapped UNet
+(parallel CFG: both halves in one UNet call) with its per-step noise
+(``make_noise_fn``), the VAE decode and, on request, quantisation to uint8
+on the device.
 
 ``begin()`` returns the chunk-granular generator the shared coalescing
 dispatcher (gyre_tpu.manager.scheduler) drives: with ``chunk_steps`` and a
 ``stop_event`` or ``progress_callback`` it yields (steps_done, steps_total)
 after every chunk and returns None when the stop event is set. The
-sampler's carry makes a chunked run compute exactly what one run does.
+sampler's carry makes a chunked run compute exactly what one run does;
+dpm_adaptive's chunks bound its solver iterations, and its progress counts
+against ceil(128 / chunk) chunks until the solver reaches sigma_min.
 
 Device work runs under ``torch.inference_mode()`` in the helpers below;
 the generator yields outside them. Not ported yet, and raising when asked
 for: img2img, inpaint, depth2img, hints, hires fix, grafting, CLIP
-guidance, tiling, token merging, sequential CFG, brownian noise, the
-tiled VAE decode of outputs past 1280 px, and txt2img on the 9-channel
-UNets of inpaint and depth engines.
+guidance, tiling, token merging, sequential CFG, the tiled VAE decode of
+outputs past 1280 px, and txt2img on the 9-channel UNets of inpaint and
+depth engines.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -28,8 +33,28 @@ from .. import set_matmul_precision
 from ..models import clip as clip_mod
 from ..models import unet as unet_mod
 from ..models import vae as vae_mod
+from ..utils import rng
 from . import denoiser, modes, prompts, samplers
 from . import schedule as sched
+
+
+def make_noise_fn(seeds, sigmas, shape, noise_type: str, device):
+    """The samplers' per-step noise: ``noise_fn(i, tag)`` -> [B, *shape]
+    f32 on ``device``, row b from seeds[b] alone. "normal" keys a draw by
+    the GLOBAL step index i (a chunked run draws what one run draws);
+    "brownian" keys it by the step's quantised log sigma,
+    int(log(max(sigma, 1e-6)) * 256), so a request draws the same noise at
+    the same sigma whatever its step count."""
+    if noise_type not in ("normal", "brownian"):
+        raise ValueError(f"unknown noise_type {noise_type!r}")
+
+    def noise_fn(i, tag):
+        key = i
+        if noise_type == "brownian":
+            key = int(math.log(max(float(sigmas[i]), 1e-6)) * 256.0)
+        return rng.batched_stream_normal(seeds, tag, key, shape, device)
+
+    return noise_fn
 
 
 class UnifiedPipeline:
@@ -134,11 +159,11 @@ class UnifiedPipeline:
                                      natural=self.ms.config.sample_size)
 
     @torch.inference_mode()
-    def _run_steps(self, sampler, dn, x, sigmas, params, start, steps,
-                   carry):
-        return samplers.sample(sampler, dn, x, sigmas, None, params,
+    def _run_steps(self, sampler, dn, x, sigmas, noise_fn, params, start,
+                   steps, carry):
+        return samplers.sample(sampler, dn, x, sigmas, noise_fn, params,
                                start=start, steps=steps, carry=carry,
-                               return_carry=True)
+                               return_carry=True, first=start == 0)
 
     @torch.inference_mode()
     def _to_uint8(self, images):
@@ -173,6 +198,9 @@ class UnifiedPipeline:
                   seeds=(0,),
                   guidance_scale=7.5,
                   eta: float | None = None,
+                  churn: float = 0.0,
+                  churn_tmin: float = 0.0,
+                  churn_tmax: float = 0.0,
                   warmup_lms: bool = False,
                   ddim_cutoff: float = 0.0,
                   karras_rho: float | None = None,
@@ -184,17 +212,24 @@ class UnifiedPipeline:
                   stop_event=None,
                   chunk_steps: int = 0,
                   return_latents: bool = False,
-                  output_dtype: str | None = None):
+                  output_dtype: str | None = None,
+                  init_image=None,
+                  mask_image=None,
+                  tiling: bool = False):
+        unported = [name for name, asked in (
+            ("init_image", init_image is not None),
+            ("mask_image", mask_image is not None), ("tiling", tiling))
+            if asked]
+        if unported:
+            raise NotImplementedError(
+                f"{', '.join(unported)}: not ported to gyre_tpu_torch yet "
+                "(ROADMAP C2)")
         ucfg = self.ms.config.unet
         if ucfg.in_channels != ucfg.out_channels:
             raise NotImplementedError(
                 f"txt2img on a {ucfg.in_channels}-channel UNet (an inpaint "
                 "or depth engine) needs its mode, which is not ported to "
                 "gyre_tpu_torch yet (ROADMAP C2)")
-        if noise_type != "normal":
-            raise NotImplementedError(
-                f"noise_type {noise_type!r} is not ported to gyre_tpu_torch "
-                "yet")
         factor = 8
         if height % factor or width % factor:
             raise ValueError(f"height and width must be multiples of "
@@ -206,14 +241,19 @@ class UnifiedPipeline:
         sigmas = sched.build_sigmas(
             self.schedule, steps, karras_rho=karras_rho,
             sigma_min=sigma_min, sigma_max=sigma_max,
+            uniform_lambda=(sampler == "dpm_fast"),
             spacing=("leading"
                      if sampler in samplers.DIFFUSERS_GRID_SAMPLERS
                      else "linspace"))
         n_steps = len(sigmas) - 1
-        # eta is part of the request surface; DPM++ 2M has none, and the
-        # JAX package ignores it for this sampler too
-        params = samplers.SamplerParams(warmup_lms=bool(warmup_lms),
-                                        ddim_cutoff=float(ddim_cutoff))
+        # default eta: 1 for the ancestral, SDE and ddpm samplers, else 0
+        if eta is None:
+            eta = 1.0 if ("ancestral" in sampler or "sde" in sampler
+                          or sampler == "ddpm") else 0.0
+        params = samplers.SamplerParams(
+            eta=float(eta), churn=float(churn),
+            churn_tmin=float(churn_tmin), churn_tmax=float(churn_tmax),
+            warmup_lms=bool(warmup_lms), ddim_cutoff=float(ddim_cutoff))
 
         gs = torch.as_tensor(guidance_scale, dtype=torch.float32).reshape(-1)
         guided = bool((gs > 1.0).any())
@@ -227,22 +267,33 @@ class UnifiedPipeline:
         dn = self._denoiser(ctx_u, ctx_g, gs_arg, guided)
         x = self._initial(seeds, lh, lw, float(sigmas[0]))
         carry = samplers.init_carry(sampler, x)
+        noise_fn = make_noise_fn(seeds, sigmas, tuple(x.shape[1:]),
+                                 noise_type, self.device)
 
         chunked = bool(chunk_steps) and chunk_steps < n_steps and (
             progress_callback is not None or stop_event is not None)
         seg_len = chunk_steps if chunked else n_steps
+        loop_total = n_steps
+        adaptive = sampler == "dpm_adaptive"
+        if adaptive:
+            # segments bound solver iterations; the loop ends when the
+            # carried `finished` flag is set
+            seg_len = seg_len if chunked else samplers.ADAPTIVE_MAX_STEPS
+            loop_total = -(-samplers.ADAPTIVE_MAX_STEPS // seg_len) * seg_len
         done = 0
-        while done < n_steps:
-            seg = min(seg_len, n_steps - done)
-            x, carry = self._run_steps(sampler, dn, x, sigmas, params, done,
-                                       seg, carry)
+        while done < loop_total:
+            seg = min(seg_len, loop_total - done)
+            x, carry = self._run_steps(sampler, dn, x, sigmas, noise_fn,
+                                       params, done, seg, carry)
             done += seg
+            if adaptive and carry[-1]:
+                done = loop_total               # the solver reached the end
             if progress_callback is not None:
-                progress_callback(done, n_steps)
+                progress_callback(done, loop_total)
             if chunked:
                 if stop_event is not None and stop_event.is_set():
                     return None
-                yield done, n_steps
+                yield done, loop_total
 
         if return_latents:
             return x

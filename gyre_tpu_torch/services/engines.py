@@ -2,16 +2,15 @@
 
 Counterpart of gyre_tpu/services/engines.py: every visible engine of the
 requested task group, as the JAX servicer lists them. Generate engines
-report only the samplers the port runs, and no prompt artifacts (txt2img
-takes text prompts only).
+report every protocol sampler with its capabilities, and no prompt
+artifacts (txt2img takes text prompts only).
 """
 
 from __future__ import annotations
 
 from ..generated import engines_pb2 as epb
 from ..generated import generation_pb2 as gpb
-from ..pipeline.samplers import (PORTED_SAMPLERS, PROTO_SAMPLERS,
-                                 SAMPLER_PROPERTIES)
+from ..pipeline.samplers import PROTO_SAMPLERS, SAMPLER_PROPERTIES
 from .exception_to_grpc import exception_to_grpc
 
 _TASK_TO_GROUP = {
@@ -31,8 +30,6 @@ _NOISE = {"normal": gpb.SAMPLER_NOISE_NORMAL,
 def _engine_samplers():
     out = []
     for value, name in PROTO_SAMPLERS.items():
-        if name not in PORTED_SAMPLERS:
-            continue
         props = SAMPLER_PROPERTIES[name]
         out.append(epb.EngineSampler(
             sampler=value,

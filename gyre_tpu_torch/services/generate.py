@@ -4,12 +4,14 @@ Counterpart of gyre_tpu/services/generate.py. A Request carrying text
 prompts (negative prompts as negative weights), size, steps, samples,
 seeds, a sampler, cfg_scale, eta, sigma limits / karras rho and clip_layer
 runs through the shared dispatcher and streams one Answer per image, as
-PNG or WebP by the request's accept list (``negotiate_mime``).
+PNG or WebP by the request's accept list (``negotiate_mime``). Every
+protocol sampler is served, with eta, churn (and its sigma range) and the
+noise type.
 ChainGenerate runs its stages with RETURN routing and ``on_status``
 targets, and the Async trio runs a request in the background, as the JAX
 servicer does. Every other request feature (image, mask, LoRA, embedding
-and hint artifacts, so also ChainGenerate's PASS routing; churn, schedule
-strength, CLIP guidance, masked-area init, hires fix, tiling) answers
+and hint artifacts, so also ChainGenerate's PASS routing; schedule strength,
+CLIP guidance, masked-area init, hires fix, tiling) answers
 UNIMPLEMENTED, naming its ROADMAP item where one is planned; none is
 ignored silently. The safety checker is not ported (ROADMAP C6): as the
 JAX package without trained checker weights, nothing is flagged.
@@ -38,8 +40,8 @@ logger = logging.getLogger(__name__)
 MAX_SEED = 2 ** 32 - 1
 # engine `options:` the port applies as request defaults, and the sizes
 # the manager's prewarm runs
-_ENGINE_OPTIONS = ("sampler", "karras_rho", "warmup_lms", "ddim_cutoff",
-                   "prewarm_sizes")
+_ENGINE_OPTIONS = ("sampler", "karras_rho", "churn", "warmup_lms",
+                   "ddim_cutoff", "prewarm_sizes")
 
 
 @dataclass
@@ -57,6 +59,9 @@ class ExtractedParams:
     sampler_set: bool = False
     guidance_scale: float = 7.5
     eta: float | None = None
+    churn: float = 0.0
+    churn_tmin: float = 0.0
+    churn_tmax: float = 0.0
     sigma_min: float | None = None
     sigma_max: float | None = None
     karras_rho: float | None = None
@@ -134,7 +139,11 @@ def extract_params(request: pb.Request) -> ExtractedParams:
         if s.HasField("eta"):
             p.eta = s.eta
         if s.HasField("churn"):
-            _unported("churn", "C1")
+            p.churn = s.churn.churn
+            if s.churn.HasField("churn_tmin"):
+                p.churn_tmin = s.churn.churn_tmin
+            if s.churn.HasField("churn_tmax"):
+                p.churn_tmax = s.churn.churn_tmax
         if s.HasField("sigma"):
             if s.sigma.HasField("sigma_min"):
                 p.sigma_min = s.sigma.sigma_min
@@ -237,6 +246,8 @@ class GenerationServiceServicer:
             p.sampler = opts.get("sampler", p.sampler)
         if p.karras_rho is None and "karras_rho" in opts:
             p.karras_rho = float(opts["karras_rho"])
+        if not p.churn and "churn" in opts:
+            p.churn = float(opts["churn"])
         seeds = fill_seeds(p)
         meta = {"prompt": p.prompt, "negative_prompt": p.negative_prompt,
                 "engine": engine_id, "sampler": p.sampler, "steps": p.steps,
@@ -253,6 +264,8 @@ class GenerationServiceServicer:
                     height=p.height, width=p.width, steps=p.steps,
                     sampler=p.sampler, seeds=batch,
                     guidance_scale=p.guidance_scale, eta=p.eta,
+                    churn=p.churn, churn_tmin=p.churn_tmin,
+                    churn_tmax=p.churn_tmax,
                     karras_rho=p.karras_rho, sigma_min=p.sigma_min,
                     sigma_max=p.sigma_max, clip_layer=p.clip_layer,
                     noise_type=p.noise_type,

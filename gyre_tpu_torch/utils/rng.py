@@ -29,9 +29,27 @@ def stream_seed(seed: int, name: str) -> int:
 def batched_normal(seeds, name: str, shape, device):
     """[len(seeds), *shape] f32 standard normal noise, row i from
     seeds[i]."""
-    rows = []
-    for s in seeds:
-        g = torch.Generator(device="cpu").manual_seed(stream_seed(s, name))
-        rows.append(torch.randn(tuple(shape), generator=g,
-                                dtype=torch.float32))
-    return torch.stack(rows).to(device)
+    return _draw([stream_seed(s, name) for s in seeds], shape, device)
+
+
+def batched_stream_normal(seeds, name: str, step: int, shape, device):
+    """Noise of stream ``name`` at ``step`` (a sampler's global step index,
+    or brownian noise's sigma key), [len(seeds), *shape] f32: row i from
+    its own generator seeded by (seeds[i], name, step), so a draw is
+    independent of the batch and distinct across steps and streams."""
+    return _draw([stream_seed(s, f"{name}:{int(step)}") for s in seeds],
+                 shape, device)
+
+
+def _draw(gen_seeds, shape, device):
+    """Row i from a CPU generator seeded gen_seeds[i]. For a CUDA device
+    the rows are drawn into pinned memory and copied without blocking,
+    so a per-step draw does not wait for the card's queue to drain (the
+    caching host allocator keeps the buffer until the copy is done)."""
+    device = torch.device(device)
+    out = torch.empty((len(gen_seeds), *shape), dtype=torch.float32,
+                      pin_memory=device.type == "cuda")
+    for row, seed in zip(out, gen_seeds):
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        torch.randn(tuple(shape), generator=g, out=row)
+    return out.to(device, non_blocking=True)

@@ -14,6 +14,7 @@ import json
 import os
 import sys
 import time
+from concurrent.futures import Future
 
 import grpc
 import jax.numpy as jnp
@@ -277,3 +278,77 @@ def test_debug_recorder_matches_jax(port, ref, tmp_path):
     assert stored[0] == stored[1] == {
         "label": "generate", "engine": "tiny", "request_id": "r51",
         "prompts": ["a boat", "blurry"]}
+
+
+# ------------------------------------------------------- sampler knobs
+
+
+def _knob_request(pb, churn=None, tmin=None, tmax=None, eta=None):
+    req = _request(pb)
+    req.image.transform.diffusion = pb.SAMPLER_K_HEUN
+    s = req.image.parameters[0].sampler
+    if churn is not None:
+        s.churn.churn = churn
+        if tmin is not None:
+            s.churn.churn_tmin = tmin
+        if tmax is not None:
+            s.churn.churn_tmax = tmax
+    if eta is not None:
+        s.eta = eta
+    return req
+
+
+@pytest.mark.parametrize("knobs", [
+    {}, {"churn": 0.5}, {"churn": 0.5, "tmin": 0.25, "tmax": 8.0},
+    {"eta": 0.75}])
+def test_sampler_knobs_extract_as_jax(knobs):
+    t = tgen.extract_params(_knob_request(tpb, **knobs))
+    j = jgen.extract_params(_knob_request(jpb, **knobs))
+    fields = ("sampler", "eta", "churn", "churn_tmin", "churn_tmax")
+    assert [getattr(t, f) for f in fields] == [getattr(j, f) for f in fields]
+    assert t.sampler == "k_heun"
+    assert t.churn == knobs.get("churn", 0.0)
+
+
+def test_sampler_knobs_reach_the_pipeline(port, monkeypatch):
+    """The request's eta and churn, or else the engine's `churn:` option,
+    are what the dispatcher hands the pipeline; eta stays None when the
+    request sets none, so the pipeline's default rule applies."""
+    seen = []
+
+    def submit(pipe, kwargs, stop_event=None, solo=False):
+        seen.append(kwargs)
+        done = Future()
+        done.set_result(np.zeros((len(kwargs["seeds"]), 64, 64, 3),
+                                 np.uint8))
+        return done
+
+    monkeypatch.setattr(port.manager.dispatcher, "submit", submit)
+    monkeypatch.setattr(port.manager.spec("tiny"), "options",
+                        {"churn": 0.3})
+    for req in (_knob_request(tpb),
+                _knob_request(tpb, churn=0.5, tmin=0.25, tmax=8.0,
+                              eta=0.75)):
+        assert len(list(port.Generate(req, TContext()))) == 1
+    knobs = [(k["sampler"], k["eta"], k["churn"], k["churn_tmin"],
+              k["churn_tmax"], k["noise_type"]) for k in seen]
+    assert knobs == [("k_heun", None, 0.3, 0.0, 0.0, "normal"),
+                     ("k_heun", 0.75, 0.5, 0.25, 8.0, "normal")]
+
+
+def test_list_engines_matches_jax(port, ref):
+    """ListEngines reports the same samplers with the same capabilities
+    as the JAX servicer for the same engine: all 19 proto enums."""
+    from gyre_tpu.generated import engines_pb2 as jepb
+    from gyre_tpu.services.engines import EnginesServiceServicer as JEngines
+    from gyre_tpu_torch.generated import engines_pb2 as tepb
+    from gyre_tpu_torch.services.engines import \
+        EnginesServiceServicer as TEngines
+
+    (t,) = TEngines(port.manager).ListEngines(
+        tepb.ListEnginesRequest(), TContext()).engine
+    (j,) = JEngines(ref.manager).ListEngines(
+        jepb.ListEnginesRequest(), JContext()).engine
+    assert [s.SerializeToString() for s in t.supported_samplers] == \
+        [s.SerializeToString() for s in j.supported_samplers]
+    assert len(t.supported_samplers) == 19

@@ -114,8 +114,8 @@ def test_noise_is_per_seed():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"sampler": "k_euler"}, "k_euler"),
-    ({"noise_type": "brownian"}, "brownian"),
+    ({"mask_image": np.ones((1, 64, 64, 1), np.float32)}, "mask_image"),
+    ({"tiling": True}, "tiling"),
 ])
 def test_unported_options_raise(pipes, kwargs, match):
     _, tpipe = pipes

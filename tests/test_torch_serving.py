@@ -95,13 +95,25 @@ def test_grpc_generate_returns_pngs(channel):
         assert a.binary.startswith(b"\x89PNG\r\n\x1a\n")
 
 
-@pytest.mark.parametrize("mutate", ["sampler", "init_image", "tiling"])
+@pytest.mark.parametrize("sampler", sorted(pb.DiffusionSampler.values()))
+def test_grpc_generate_every_sampler(channel, sampler):
+    """Each proto sampler enum answers its PNG through the server and the
+    dispatcher."""
+    req = _request(seed=40 + sampler % 100, sampler=sampler)
+    req.image.samples = 1
+    arts = [a for ans in _generate(channel)(req, timeout=120)
+            for a in ans.artifacts]
+    assert len(arts) == 1 and arts[0].mime == "image/png"
+    assert arts[0].binary.startswith(b"\x89PNG\r\n\x1a\n")
+
+
+@pytest.mark.parametrize("mutate", ["mask", "init_image", "tiling"])
 def test_grpc_unported_features_are_unimplemented(channel, mutate):
-    req = _request(sampler=pb.SAMPLER_K_EULER if mutate == "sampler"
-                   else pb.SAMPLER_K_DPMPP_2M)
-    if mutate == "init_image":
+    req = _request()
+    if mutate in ("mask", "init_image"):
         art = req.prompt.add()
-        art.artifact.type = pb.ARTIFACT_IMAGE
+        art.artifact.type = pb.ARTIFACT_MASK if mutate == "mask" \
+            else pb.ARTIFACT_IMAGE
         art.artifact.binary = b"\x89PNG"
     elif mutate == "tiling":
         req.image.tiling = True
@@ -118,5 +130,6 @@ def test_grpc_list_engines(channel):
     engines = call(epb.ListEnginesRequest(), timeout=30).engine
     assert [e.id for e in engines] == ["tiny"]
     assert engines[0].ready
-    assert pb.SAMPLER_K_DPMPP_2M in [s.sampler
-                                     for s in engines[0].supported_samplers]
+    listed = [s.sampler for s in engines[0].supported_samplers]
+    assert listed == list(pb.DiffusionSampler.values())     # all 19
+    assert len(listed) == 19
