@@ -17,7 +17,12 @@ Phases, each printing one JSON object per line:
                within a stated bound; median times of kernel, plain version
                and one library call (SDPA, cuDNN conv, var_mean); the
                bound; launches per batch-1 call. K2a also at the batch-8
-               call's shapes (its slabs and cluster size depend on B)
+               call's shapes (its slabs and cluster size depend on B);
+               K1, K2a and K2b also at every other shape of the modes
+               phase (the VAE encoder, the hires fix's UNet at 128..16
+               and 72..9, the VAE at 1024x1024 and in a tiled decode's
+               tile), with no launches in the per-call sums and summed
+               on a "mode_shapes" line apart from the kernels line
   4. pipeline  UnifiedPipeline on full-width SD1.5 (random weights from a
                seed): 512x512, 20 steps k_dpmpp_2m, CFG 7.5 (parallel),
                bf16, chunk_steps=10 with a stop_event, uint8 on the device.
@@ -37,6 +42,19 @@ Phases, each printing one JSON object per line:
                (per-step noise) beside k_dpmpp_2m; then one Generate
                over gRPC per proto sampler enum (19, 10 steps) answering
                a PNG, and ListEngines listing 19 samplers
+  5b. modes    every generation mode on the same SD1.5 request, batch 1
+               (MODE_CASES): img2img at strength 0.6 (12 of 20 steps),
+               4-channel inpaint (shaped fill, outmask composite),
+               inpaint9 and depth2img (9- and 5-channel UNets at SD1.5
+               width, random from seed 0), graft (inpaint9 root, SD1.5
+               top), the hires fix at 1024x1024 (hi latents 128, lo 72),
+               seamless tiling, and the tiled VAE decode of 192x192
+               latents (9 tiles); each with its UNet calls, VAE encodes
+               and decodes counted and its launches against the
+               prediction and the launch rule, finite latents, a
+               non-constant image, wall seconds; inpaint's kept pixels
+               equal to the init image; img2img, inpaint and graft equal
+               to their 10-step-chunked runs in every bit
   6. serve     EngineManager + the coalescing dispatcher under concurrent
                requests, then two Generate calls over gRPC
   7. http      the server as main builds it (server.serve: the gRPC
@@ -51,8 +69,13 @@ Phases, each printing one JSON object per line:
                (the port's grpc_web_client), the accept list "image/webp,
                image/png" (a WebP, or UNIMPLEMENTED where Pillow is
                missing), and requests without the token refused
-               (UNAUTHENTICATED over gRPC, 401 and 403 over HTTP); one line
-               per route with its wall seconds and bytes
+               (UNAUTHENTICATED over gRPC, 401 and 403 over HTTP); REST
+               image-to-image and image-to-image/masking (the kept pixels
+               equal to the init image's), a ChainGenerate whose PASS
+               stage feeds its PNG to the next stage as its init image,
+               and ListEngines with a 9-channel inpainting engine beside
+               SD1.5, both ready; one line per route with its wall seconds
+               and bytes
   8. weights   full-width SD1.5 from disk: a random ModelSet saved as a
                diffusers checkpoint (f32 safetensors), served through an
                engines.yaml in the DSL (an !include, a template with
@@ -209,6 +232,21 @@ ATTN_SHAPES = [
     ("unet_cross_8", 2, 8, 64, 77, 160, 1 * STEPS),
     ("vae_mid", 1, 1, 4096, 4096, 512, 1),
 ]
+# K1 at every shape of the modes phase that the batch-1 call does not run,
+# kept apart from ATTN_SHAPES (no launches of a batch-1 call, and not in
+# the kernels line): the hires fix's UNet at 1024x1024, hi latents 128..16
+# and lo 72..9 (self T = 16384/4096/1024 and 5184/1296/324/81, cross
+# against 77 tokens; its hi mid level is unet_*_16's shape), the VAE
+# decoder's mid block at 1024x1024 and in a tiled decode's 96x96-latent
+# tile. The VAE encoder's mid block is vae_mid's shape.
+MODE_ATTN_SHAPES = [
+    (f"hires_{kind}_{t}", 2, 8, t, t if kind == "self" else 77, d)
+    for kind in ("self", "cross")
+    for t, d in ((16384, 40), (4096, 80), (1024, 160),
+                 (5184, 40), (1296, 80), (324, 160), (81, 160))] + [
+    ("vae_mid_1024", 1, 1, 16384, 16384, 512),
+    ("vae_mid_tile96", 1, 1, 9216, 9216, 512),
+]
 # K2a + K2b at every distinct GN -> SiLU -> conv3x3 shape of a batch-1
 # call: (name, B, H=W, C, Co, eps, launches per call). A resnet is conv1
 # C -> Co and conv2 Co -> Co. UNet (B=2): 2 resnets per down level, 2 in
@@ -237,6 +275,37 @@ CONV_SHAPES = [
     ("vae_512_256_128", 1, 512, 256, 128, 1e-6, 1),
     ("vae_512_128_128", 1, 512, 128, 128, 1e-6, 5),
 ]
+
+
+def _mode_conv_shapes():
+    """K2a + K2b at every distinct GN -> SiLU -> conv3x3 shape of the modes
+    phase that the batch-1 call does not run, kept apart from CONV_SHAPES
+    (no launches of a batch-1 call, and not in the kernels line): (name,
+    B, H=W, C, Co, eps). Each is a batch-1 shape at another level size:
+    the hires fix's UNet at 1024x1024 (the 64/32/16/8 levels at 128/64/
+    32/16 hi and 72/36/18/9 lo), the VAE decoder of a tiled decode's
+    96x96-latent tile (64/128/256/512 at 96/192/384/768) and at 1024x1024
+    (at 128/256/512/1024); and the VAE encoder's two channel pairs at 512x
+    512 that the decoder lacks (its others are decoder shapes). A shape
+    that a batch-1 row already checks is left out."""
+    seen = {(b, hw, c, co, eps) for _, b, hw, c, co, eps, _ in CONV_SHAPES}
+    out = []
+    for name, b, hw, c, co, eps, _ in CONV_SHAPES:
+        model, pairs = name.split("_")[0], ()
+        if model == "unet":
+            pairs = (("hires", hw * 2), ("hires", hw * 9 // 8))
+        elif model == "vae":
+            pairs = (("tile96", hw * 3 // 2), ("vae1024", hw * 2))
+        for prefix, size in pairs:
+            if (b, size, c, co, eps) not in seen:
+                seen.add((b, size, c, co, eps))
+                out.append((f"{prefix}_{size}_{c}_{co}", b, size, c, co,
+                            eps))
+    return out + [("venc_256_128_256", 1, 256, 128, 256, 1e-6),
+                  ("venc_128_256_512", 1, 128, 256, 512, 1e-6)]
+
+
+MODE_CONV_SHAPES = _mode_conv_shapes()
 # K2a alone at two shapes of a batch-8 call, where its launch differs from
 # batch 1's: (name, B, H=W, C, eps, launches per batch-8 call). The UNet
 # runs 16 rows (8 images x 2 CFG rows), the VAE 8.
@@ -347,7 +416,7 @@ def phase_kernels():
             stats_bound(b, b * hw * hw, c)), **extra)
         return x, gs, gb, (a, bb), (a_ref, b_ref)
 
-    for name, b, h, tq, tk, d, launches in ATTN_SHAPES:
+    def attn_row(name, b, h, tq, tk, d, launches, **extra):
         # as the models call K1: attention() on [B,T,H,D] projections, a
         # linear layer's [B,T,H*D] output reshaped (token stride H*D, head
         # stride D); the plain version and SDPA take the [B,H,T,D] views
@@ -363,14 +432,14 @@ def phase_kernels():
             lambda: A.attention(q, k, v, scale=scale),
             lambda: A.attention_plain(qt, kt, vt, scale),
             lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale),
-            attn_bound(b, h, tq, tk, d)))
+            attn_bound(b, h, tq, tk, d)), **extra)
         del q, k, v, qt, kt, vt
 
-    for name, b, hw, c, co, eps, launches in CONV_SHAPES:
+    def conv_row(name, b, hw, c, co, eps, launches, **extra):
         dims = [b, hw, hw, c, co]
         m = b * hw * hw
         x, gs, gb, (a, bb), (a_ref, b_ref) = record_stats(
-            name, b, hw, c, eps, launches)
+            name, b, hw, c, eps, launches, **extra)
         w = rand(3, 3, c, co, scale=(9 * c) ** -0.5)
         cb = rand(co, dtype=torch.float32, scale=0.1)
 
@@ -396,10 +465,21 @@ def phase_kernels():
             chain_ms=_timed(lambda: FC.gn_silu_conv3x3(
                 x, gs, gb, w, cb, groups=32, eps=eps)),
             chain_plain_ms=_timed(lambda: FC.gn_silu_conv3x3_plain(
-                x, gs, gb, w, cb, groups=32, eps=eps)))
+                x, gs, gb, w, cb, groups=32, eps=eps)), **extra)
         if not results["gn_silu_conv3x3"][-1]["chain_err_rel"] <= BF16_BOUND:
             failed.append(f"gn_silu_conv3x3 chain {name}")
         del x, a, bb, a_ref, b_ref, w, y, w_cl, chain, chain_ref
+
+    for shape in ATTN_SHAPES:
+        attn_row(*shape)
+    for shape in CONV_SHAPES:
+        conv_row(*shape)
+    # the modes phase's shapes: no launches of a batch-1 call, tagged so
+    # that the kernels line leaves them out
+    for shape in MODE_ATTN_SHAPES:
+        attn_row(*shape, 0, modes=True)
+    for shape in MODE_CONV_SHAPES:
+        conv_row(*shape, 0, modes=True)
     for name, b, hw, c, eps, launches in GN_BATCH8_SHAPES:
         # not in a batch-1 call: no launches of its per-call sums
         record_stats(name, b, hw, c, eps, 0,
@@ -680,6 +760,198 @@ def phase_samplers():
         torch.cuda.empty_cache()
 
 
+# the modes phase: for each case, its predicted launches (K1, K2a = K2b)
+# from the launch rule of the samplers phase (a UNet call 32 / 44, a VAE
+# decode 1 / 28) plus 1 / 20 a VAE encode (4 levels x 2 resnets x 2
+# convs, 2 mid resnets x 2 convs; its mid attention), and its UNet calls
+# (model calls x UNets a call: hires and graft run two). Under tiling the
+# UNet's resnets run no fused kernel. The tiled decode is 9 tiles.
+MODE_CASES = {
+    # name: (UNet calls, VAE encodes, VAE decodes, K1, K2)
+    "img2img": (12, 1, 1, 386, 576),
+    "inpaint": (20, 1, 1, 642, 928),
+    "inpaint9": (20, 2, 1, 643, 948),
+    "depth2img": (20, 1, 1, 642, 928),
+    "graft": (40, 2, 1, 1283, 1828),
+    "hires": (40, 0, 1, 1281, 1788),
+    "tiling": (20, 0, 1, 641, 28),
+    "tiled_decode": (0, 0, 9, 9, 252),
+}
+
+
+def _mode_inputs(size: int = 512):
+    """A uint8-valued init image [1,H,W,3] (smooth gradients and waves,
+    some values clipped to 0 and 1) and a mask [1,H,W,1] (1 regenerates)
+    whose edges fall inside 8x8 blocks, so that the latent mask has
+    fractional values."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    img = np.stack([1.3 * yy - 0.1, 0.5 + 0.6 * np.sin(9 * xx * yy),
+                    1.2 * xx * (1 - yy)], -1)
+    img = np.round(np.clip(img, 0, 1) * 255) / 255
+    mask = np.zeros((size, size, 1))
+    mask[100:380, 150:350] = 1.0
+    return img[None].astype(np.float32), mask[None].astype(np.float32)
+
+
+def _kept_pixels(mask_np):
+    """[H,W] bool: the pixels an inpaint request keeps from its init image,
+    those whose keep mask (1 - the mask's 8x8 box mean), bilinearly
+    upsampled, is 1. Worked out apart from the port's own resize: for a
+    bilinear upsample, ``F.interpolate`` (half-pixel centres, edges
+    clamped) weighs the same taps as the JAX package's resize, and at a
+    factor of 8 every weight and box mean here is exact in float32."""
+    import torch
+    import torch.nn.functional as F
+
+    m = torch.from_numpy(mask_np)
+    _, h, w, _ = m.shape
+    keep = 1.0 - m.reshape(1, h // 8, 8, w // 8, 8, 1).mean(dim=(2, 4))
+    up = F.interpolate(keep.permute(0, 3, 1, 2), size=(h, w),
+                       mode="bilinear", align_corners=False)
+    return (up[0, 0] >= 1.0).numpy()
+
+
+def phase_modes():
+    """Every generation mode on full-width SD1.5 (9- and 5-channel UNets
+    for inpaint9 and depth2img), 20 steps k_dpmpp_2m, batch 1: launches
+    against MODE_CASES, UNet calls counted, finite latents, a non-constant
+    image, the kept pixels of inpaint equal to the init image, and for
+    img2img, inpaint and graft the 10-step-chunked run equal in every
+    bit."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gyre_tpu_torch import _build
+    from gyre_tpu_torch.models import configs
+    from gyre_tpu_torch.models import unet as unet_mod
+    from gyre_tpu_torch.models import vae as vae_mod
+    from gyre_tpu_torch.models.modelset import random_modelset
+    from gyre_tpu_torch.pipeline.unified import UnifiedPipeline
+
+    init_np, mask_np = _mode_inputs()
+    init = torch.from_numpy(init_np).cuda()
+    mask = torch.from_numpy(mask_np).cuda()
+    counts = {"unet": 0, "tiling": False, "encode": 0, "decode": 0}
+    decoded = []
+    apply, encode, decode = unet_mod.apply, vae_mod.encode, vae_mod.decode
+
+    def counted_apply(*args, **kw):
+        counts["unet"] += 1
+        counts["tiling"] |= any(kw.get("tiling", (False, False)))
+        return apply(*args, **kw)
+
+    def counted_encode(*args, **kw):
+        counts["encode"] += 1
+        return encode(*args, **kw)
+
+    def counted_decode(params, cfg, z):
+        counts["decode"] += 1
+        decoded.append(bool(z.isfinite().all()))
+        return decode(params, cfg, z)
+
+    failed = []
+
+    def run(name, fn, chunked=None):
+        counts.update(unet=0, tiling=False, encode=0, decode=0)
+        decoded.clear()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        img = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.launches)
+        seen = dict(counts)
+        calls, enc, dec, k1, k2 = MODE_CASES[name]
+        k2_unet = 0 if seen["tiling"] else 44
+        rule = {"flash_attention": 32 * seen["unet"] + seen["decode"] +
+                seen["encode"],
+                "gn_stats": k2_unet * seen["unet"] + 28 * seen["decode"] +
+                20 * seen["encode"]}
+        rule["gn_silu_conv3x3"] = rule["gn_stats"]
+        expect = {"flash_attention": k1, "gn_stats": k2,
+                  "gn_silu_conv3x3": k2}
+        line = {"phase": "modes", "case": name, "wall_s": wall,
+                "unet_calls": seen["unet"], "encodes": seen["encode"],
+                "decodes": seen["decode"], "launches": launches,
+                "expected_launches": expect,
+                "latents_finite": all(decoded),
+                "image_shape": list(img.shape),
+                "image_min": int(img.min()), "image_max": int(img.max())}
+        if chunked is not None:
+            other = chunked()
+            line["chunked_equal"] = bool(torch.equal(img, other))
+        emit(line)
+        failed.extend(f"{name}: {what}" for what, bad in (
+            (f"UNet calls {seen['unet']}, encodes {seen['encode']}, "
+             f"decodes {seen['decode']}, expected {calls}, {enc}, {dec}",
+             (seen["unet"], seen["encode"], seen["decode"]) !=
+             (calls, enc, dec)),
+            (f"launches {launches} != {expect}", launches != expect),
+            (f"launches {launches} break the rule {rule}", launches != rule),
+            ("latents not finite", not line["latents_finite"]),
+            ("constant image", line["image_min"] == line["image_max"]),
+            ("10-step chunks differ from one run",
+             line.get("chunked_equal") is False)) if bad)
+        return img
+
+    base = dict(REQUEST, seeds=[1], output_dtype="uint8")
+    chunks = dict(chunk_steps=10, stop_event=threading.Event())
+    sd15 = configs.SD15
+    unet_mod.apply, vae_mod.encode, vae_mod.decode = \
+        counted_apply, counted_encode, counted_decode
+    try:
+        ms = random_modelset(sd15, seed=0, device="cuda")
+        pipe = UnifiedPipeline(ms, compute_dtype=torch.bfloat16)
+        pipe(**dict(base, init_image=init, strength=0.6))     # warm-up
+        kw = dict(base, init_image=init, strength=0.6)
+        run("img2img", lambda: pipe(**kw), lambda: pipe(**kw, **chunks))
+        kw = dict(base, init_image=init, mask_image=mask, strength=1.0,
+                  masked_area_init="shaped")
+        img = run("inpaint", lambda: pipe(**kw),
+                  lambda: pipe(**kw, **chunks))
+        hard = torch.from_numpy(_kept_pixels(mask_np)).cuda()
+        want = (init[0] * 255.0 + 0.5).clamp(0, 255).to(torch.uint8)
+        kept_equal = bool(torch.equal(img[0][hard], want[hard]))
+        emit({"phase": "modes", "case": "inpaint", "check": "kept_pixels",
+              "kept": int(hard.sum()), "equal": kept_equal})
+        if not kept_equal or not bool(hard.any()) or bool(hard.all()):
+            failed.append("inpaint: kept pixels differ from the init image")
+        run("hires", lambda: pipe(**dict(base, height=1024, width=1024,
+                                         hires_fix=True)))
+        run("tiling", lambda: pipe(**dict(base, tiling=True)))
+        lat = torch.randn((1, 192, 192, 4), device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(0))
+        run("tiled_decode", lambda: pipe._to_uint8(pipe.vae_decode(lat)))
+
+        ms9 = random_modelset(dataclasses.replace(
+            sd15, unet=configs.UNET_SD15_INPAINT), seed=0, device="cuda")
+        kw = dict(base, init_image=init, mask_image=mask, strength=1.0)
+        pipe9 = UnifiedPipeline(ms9, compute_dtype=torch.bfloat16)
+        run("inpaint9", lambda: pipe9(**kw))
+        graft = UnifiedPipeline(ms9, compute_dtype=torch.bfloat16,
+                                graft_ms=ms)
+        run("graft", lambda: graft(**kw), lambda: graft(**kw, **chunks))
+        del pipe9, graft, ms9
+        torch.cuda.empty_cache()
+
+        ms5 = random_modelset(dataclasses.replace(
+            sd15, unet=configs.UNET_SD15_DEPTH), seed=0, device="cuda")
+        pipe5 = UnifiedPipeline(ms5, compute_dtype=torch.bfloat16)
+        run("depth2img", lambda: pipe5(**dict(base, init_image=init,
+                                              strength=1.0)))
+        del pipe5, ms5, pipe, ms
+    finally:
+        unet_mod.apply, vae_mod.encode, vae_mod.decode = apply, encode, \
+            decode
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("modes: " + "; ".join(failed))
+
+
 def _generate_request(seed: int, engine_id: str = "sd15"):
     from gyre_tpu_torch.services.generate import pb
 
@@ -850,13 +1122,15 @@ def phase_http():
     from gyre_tpu_torch import _build, server
     from gyre_tpu_torch.generated import engines_pb2 as epb
     from gyre_tpu_torch.http.grpc_web_client import WebChannel
+    from gyre_tpu_torch.ops.images import encode_png
     from gyre_tpu_torch.services.generate import pb
 
     tmp = tempfile.mkdtemp(prefix="gyre-smoke-http-")
     cfg = os.path.join(tmp, "smoke-http.yaml")
     with open(cfg, "w") as fh:
         fh.write("- {id: sd15, default: true, model: {preset: sd15, "
-                 "seed: 0}}\n")
+                 "seed: 0}}\n- {id: sd15-inpaint, model: {preset: "
+                 "sd15-inpaint, seed: 0}}\n")
     args = server.parse_args(
         ["--enginecfg", cfg, "--grpc_port", "0", "--http_port", "0",
          "--access_token", HTTP_TOKEN, "--cache_path",
@@ -921,6 +1195,41 @@ def phase_http():
         if img.shape != shape or img.min() == img.max() or diff > 1:
             raise AssertionError(f"REST images {img.shape}, equal seeds "
                                  f"differ by {diff}")
+
+        # 1b. REST image-to-image and masking on the SD 1.5 engine, the
+        # init image a PNG; masking keeps the init image where the mask
+        # is black
+        init_np, mask_np = _mode_inputs()
+        init_u8 = np.round(init_np[0] * 255).astype(np.uint8)
+        mask_u8 = np.repeat(np.round(mask_np[0] * 255).astype(np.uint8), 3,
+                            axis=-1)
+        def b64(a):
+            return base64.b64encode(encode_png(a)).decode()
+
+        for kind, extra in (
+                ("image-to-image", {"image_strength": 0.4}),
+                ("image-to-image/masking", {
+                    "mask_image": b64(mask_u8),
+                    "mask_source": "MASK_IMAGE_WHITE"})):
+            body = json.loads(rest)
+            body.update(init_image=b64(init_u8), seed=410, **extra)
+            t0 = time.perf_counter()
+            status, ctype, png = post(f"/v1/generation/sd15/{kind}",
+                                      json.dumps(body).encode(), {
+                                          **auth,
+                                          "Content-Type": "application/json",
+                                          "Accept": "image/png"})
+            px = _png_pixels(png)
+            kept = _kept_pixels(mask_np)
+            line = {"status": status, "content_type": ctype,
+                    "shape": list(px.shape)}
+            if kind.endswith("masking"):
+                line["kept_equal"] = bool((px[kept] == init_u8[kept]).all())
+            route(f"rest_{kind}", t0, len(png), **line)
+            if status != 200 or ctype != "image/png" or px.shape != \
+                    init_u8.shape or px.min() == px.max() or \
+                    line.get("kept_equal") is False:
+                raise AssertionError(f"REST {kind}: {line}")
 
         channel = grpc.insecure_channel(f"localhost:{serving.grpc_port}")
         meta = [("authorization", f"Bearer {HTTP_TOKEN}")]
@@ -988,6 +1297,40 @@ def phase_http():
         if len(answers) != 2 or [a.artifacts[0].seed for a in answers] != \
                 [403, 404]:
             raise AssertionError(f"ChainGenerate gave {len(answers)} answers")
+
+        # 3b. ChainGenerate with PASS: stage 1's PNG is stage 2's init
+        # image (img2img, schedule start 0.5); only stage 2 answers
+        chain = pb.ChainRequest(request_id="smoke-pass")
+        first = chain.stage.add(id="first")
+        first.request.CopyFrom(_generate_request(407))
+        on = first.on_status.add()
+        on.action.append(pb.STAGE_ACTION_PASS)
+        on.target = "second"
+        second = chain.stage.add(id="second")
+        second.request.CopyFrom(_generate_request(408))
+        second.request.image.parameters.add().schedule.start = 0.5
+        second.on_status.add().action.append(pb.STAGE_ACTION_RETURN)
+        t0 = time.perf_counter()
+        answers = list(rpc("unary_stream", "ChainGenerate", pb.ChainRequest,
+                           pb.Answer)(chain, metadata=meta, timeout=600))
+        pngs = [a.binary for a in _image_artifacts(answers)]
+        route("chain_pass", t0, sum(map(len, pngs)), answers=len(answers),
+              answer_ids=[a.answer_id for a in answers])
+        if [a.answer_id for a in answers] != ["smoke-pass-second"] or \
+                _png_pixels(pngs[0]).shape != shape:
+            raise AssertionError(f"ChainGenerate PASS gave {len(answers)} "
+                                 "answers")
+
+        # 3c. ListEngines: both engines ready, the 9-channel one too
+        listed = channel.unary_unary(
+            "/gooseai.EnginesService/ListEngines",
+            request_serializer=epb.ListEnginesRequest.SerializeToString,
+            response_deserializer=epb.Engines.FromString)(
+                epb.ListEnginesRequest(), metadata=meta, timeout=60).engine
+        ready = {e.id: e.ready for e in listed}
+        emit({"phase": "http", "route": "list_engines", "ready": ready})
+        if ready != {"sd15": True, "sd15-inpaint": True}:
+            raise AssertionError(f"ListEngines ready: {ready}")
 
         # 4. gRPC-Web through the HTTP port
         web = WebChannel(base, token=HTTP_TOKEN)
@@ -1066,7 +1409,7 @@ def phase_http():
               **{k: disp[k] for k in ("batches", "coalesced_requests",
                                       "interleaved_chunks", "padded_rows",
                                       "watchdog")}})
-        if [e["ready"] for e in status["engines"]] != [True]:
+        if [e["ready"] for e in status["engines"]] != [True, True]:
             raise AssertionError(f"/status engines {status['engines']}")
         channel.close()
     finally:
@@ -1316,6 +1659,7 @@ def main() -> int:
     kernels = phase_kernels()
     launches = phase_pipeline()
     phase_samplers()
+    phase_modes()
     phase_serve()
     phase_http()
     phase_weights()
@@ -1323,22 +1667,31 @@ def main() -> int:
     # the median times and of the bounds; the *_per_call keys weight each
     # shape by its launches in one batch-1 call; max_abs_err: the largest
     # absolute error over those shapes; bound_by: what bounds the most of
-    # the summed bound
-    rows = []
-    for name, source, replaces in KERNEL_TABLE:
-        rs = kernels[name]
+    # the summed bound. The modes phase's shapes are summed the same way
+    # on a line of their own, so that the kernels line covers the shapes
+    # it covered before them.
+    def summary(rs):
         by = {k: sum(r["bound_ms"] for r in rs if r["bound_by"] == k)
               for k in ("bytes", "operations")}
+        return {"max_abs_err": max(r["max_abs_err"] for r in rs),
+                **{k: sum(r[k] for r in rs)
+                   for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+                "bound_by": max(by, key=by.get)}
+
+    rows, mode_rows = [], []
+    for name, source, replaces in KERNEL_TABLE:
+        rs = [r for r in kernels[name] if not r.get("modes")]
+        mode_rs = [r for r in kernels[name] if r.get("modes")]
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in rs),
-            **{k: sum(r[k] for r in rs)
-               for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
-            "bound_by": max(by, key=by.get),
+            **summary(rs),
             **{f"{k}_per_call": sum(r[k] * r["launches_per_call"]
                                     for r in rs)
                for k in ("ms", "plain_ms", "bound_ms", "library_ms")}})
+        mode_rows.append({"name": name, "shapes": len(mode_rs),
+                          **summary(mode_rs)})
+    emit({"mode_shapes": mode_rows})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

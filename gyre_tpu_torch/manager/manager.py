@@ -25,8 +25,9 @@ concurrent requests into one batch.
 
 Not ported, and raising NotImplementedError with the ROADMAP item when an
 engine or request needs them: LoRA/TI adapters (C3), hintsets and hint
-models (C4), grafting (C2), the CLIP model for guidance (C6), task engines
-(D).
+models (C4), the CLIP model for guidance (C6), task engines (D). An
+engine's ``graft:`` names another engine whose UNet its pipeline grafts on
+top of its own (the 9-channel inpainting UNet under SD 1.5, say).
 """
 
 from __future__ import annotations
@@ -284,12 +285,13 @@ class EngineManager:
                 if engine_id in self._pipelines:
                     return self._pipelines[engine_id]
                 spec = self.spec(engine_id)
-                if spec.params.get("graft") or \
-                        (spec.options or {}).get("graft"):
-                    _unported(f"engine {engine_id}: graft", "C2")
+                # `graft:` names the engine whose UNet is grafted on top
+                graft_id = spec.params.get("graft") or \
+                    (spec.options or {}).get("graft")
                 self._pipelines[engine_id] = UnifiedPipeline(
                     self.modelset(engine_id),
-                    compute_dtype=self.compute_dtype)
+                    compute_dtype=self.compute_dtype,
+                    graft_ms=self.modelset(graft_id) if graft_id else None)
         return self._pipelines[engine_id]
 
     def dispatch_view(self, engine_id: str) -> DispatchView:
@@ -462,16 +464,14 @@ class EngineManager:
 
     def engine_ready(self, spec) -> bool:
         """Ready when its weights are resident and the port has a path for
-        it: a generate engine whose UNet has as many input channels as
-        output channels. A 9-channel inpainting or 5-channel depth UNet
-        needs its mode (ROADMAP C2), a task engine its pipeline (D); none
-        of those is ready, since each of their requests would answer
-        UNIMPLEMENTED."""
+        it: a generate engine, its UNet taking 4 input channels (txt2img
+        and every mode), 9 (inpainting) or 5 (depth2img). A task engine
+        needs its pipeline (ROADMAP D) and is not ready, since each of its
+        requests would answer UNIMPLEMENTED."""
         ms = self._modelsets.get(spec.id)
         if spec.task != "generate" or ms is None:
             return False
-        ucfg = ms.config.unet
-        return ucfg.in_channels == ucfg.out_channels
+        return ms.config.unet.in_channels in (4, 5, 9)
 
     def status(self) -> list[dict]:
         return [

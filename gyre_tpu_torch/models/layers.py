@@ -47,6 +47,20 @@ def conv2d(p: Params, x, stride: int = 1, padding: int | None = None):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def conv2d_tiled(p: Params, x, stride: int = 1, tiling_x: bool = False,
+                 tiling_y: bool = False):
+    """NHWC conv (OIHW weight) with circular (seamless-tiling) padding on
+    either axis and zero padding on the other, SAME for odd kernels."""
+    kh, kw = p["w"].shape[2], p["w"].shape[3]
+    ph, pw = (kh - 1) // 2, (kw - 1) // 2
+    if tiling_y and ph:
+        x = torch.cat([x[:, -ph:], x, x[:, :ph]], dim=1)
+    if tiling_x and pw:
+        x = torch.cat([x[:, :, -pw:], x, x[:, :, :pw]], dim=2)
+    return conv2d(p, x, stride=stride,
+                  padding=(0 if tiling_y else ph, 0 if tiling_x else pw))
+
+
 def group_norm(p: Params, x, groups: int = 32, eps: float = 1e-5):
     """GroupNorm over the channel (last) axis, statistics in f32."""
     b, c = x.shape[0], x.shape[-1]

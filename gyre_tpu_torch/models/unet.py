@@ -3,10 +3,12 @@
 Counterpart of gyre_tpu/models/unet.py, same params tree and NHWC layout.
 Every resnet's GN -> SiLU -> conv3x3 (both convs, eps 1e-5) goes through the
 fused kernels K2a/K2b, and every self- and cross-attention through the flash
-kernel K1. Not ported yet, and raising when asked for: SD2/SDXL features
-(linear projections, added/class conditioning, scale-shift time
-conditioning), ControlNet/T2I-Adapter residuals, seamless tiling and token
-merging.
+kernel K1. Under seamless tiling the convs pad circularly on the tiled
+axes, so the resnets take the plain GroupNorm -> SiLU -> conv path, as in
+the JAX package, and only the attentions run a kernel. Not ported yet, and
+raising when asked for: SD2/SDXL features (linear projections,
+added/class conditioning, scale-shift time conditioning),
+ControlNet/T2I-Adapter residuals and token merging.
 """
 
 from __future__ import annotations
@@ -130,12 +132,25 @@ def param_specs(cfg: UNetConfig) -> Params:
 # ------------------------------------------------------------------ blocks
 
 
-def _resnet(p, x, temb, groups):
-    h = L.gn_silu_conv3x3(p["norm1"], p["conv1"], x, groups, _EPS)
-    te = L.linear(p["time_emb"], L.silu(temb))
-    # the time embedding is added before the second GroupNorm
-    h = h + te[:, None, None, :]
-    h = L.gn_silu_conv3x3(p["norm2"], p["conv2"], h, groups, _EPS)
+def _oihw(conv_p: Params) -> Params:
+    """A fused conv's HWIO weight as the OIHW conv the plain path takes."""
+    return {"w": conv_p["w"].permute(3, 2, 0, 1), "b": conv_p["b"]}
+
+
+def _resnet(p, x, temb, groups, tiling=(False, False)):
+    te = L.linear(p["time_emb"], L.silu(temb))[:, None, None, :]
+    if any(tiling):
+        tx, ty = tiling
+        h = L.conv2d_tiled(_oihw(p["conv1"]),
+                           L.silu(L.group_norm(p["norm1"], x, groups)),
+                           tiling_x=tx, tiling_y=ty)
+        # the time embedding is added before the second GroupNorm
+        h = L.conv2d_tiled(_oihw(p["conv2"]),
+                           L.silu(L.group_norm(p["norm2"], h + te, groups)),
+                           tiling_x=tx, tiling_y=ty)
+    else:
+        h = L.gn_silu_conv3x3(p["norm1"], p["conv1"], x, groups, _EPS)
+        h = L.gn_silu_conv3x3(p["norm2"], p["conv2"], h + te, groups, _EPS)
     if "shortcut" in p:
         x = L.conv2d(p["shortcut"], x)
     return x + h
@@ -184,9 +199,9 @@ def apply(params: Params, cfg: UNetConfig, x, timesteps, context, *,
           adapter_states: list | None = None,
           tiling: tuple[bool, bool] = (False, False),
           tome_ratio: float = 0.0):
-    """Predict noise: x [B,H,W,Cin], timesteps [B], context [B,S,D].
-
-    The conditioning arguments of the JAX package's signature are kept;
+    """Predict noise: x [B,H,W,Cin], timesteps [B], context [B,S,D];
+    ``tiling`` = (tiling_x, tiling_y) makes the image seamless on those
+    axes. The conditioning arguments of the JAX package's signature are kept;
     those not ported yet raise."""
     _check_config(cfg)
     unported = [name for name, on in (
@@ -195,7 +210,7 @@ def apply(params: Params, cfg: UNetConfig, x, timesteps, context, *,
         ("down_residuals", down_residuals is not None),
         ("mid_residual", mid_residual is not None),
         ("adapter_states", adapter_states is not None),
-        ("tiling", any(tiling)), ("tome_ratio", tome_ratio > 0)) if on]
+        ("tome_ratio", tome_ratio > 0)) if on]
     if unported:
         raise NotImplementedError(
             f"UNet inputs not ported to gyre_tpu_torch yet: {unported}")
@@ -206,11 +221,12 @@ def apply(params: Params, cfg: UNetConfig, x, timesteps, context, *,
                     L.silu(L.linear(params["time_embed"]["lin1"],
                                     temb.to(dtype))))
 
-    h = L.conv2d(params["conv_in"], x)
+    tx, ty = tiling
+    h = L.conv2d_tiled(params["conv_in"], x, tiling_x=tx, tiling_y=ty)
     skips = [h]
     for lvl, blk in enumerate(params["down"]):
         for i, res in enumerate(blk["resnets"]):
-            h = _resnet(res, h, temb, groups)
+            h = _resnet(res, h, temb, groups, tiling)
             if blk["attns"]:
                 h = _transformer(blk["attns"][i], h, context,
                                  cfg.num_heads[lvl], groups)
@@ -220,22 +236,23 @@ def apply(params: Params, cfg: UNetConfig, x, timesteps, context, *,
             skips.append(h)
 
     mid = params["mid"]
-    h = _resnet(mid["res1"], h, temb, groups)
+    h = _resnet(mid["res1"], h, temb, groups, tiling)
     if "attn" in mid:
         h = _transformer(mid["attn"], h, context,
                          cfg.num_heads[cfg.levels - 1], groups)
-    h = _resnet(mid["res2"], h, temb, groups)
+    h = _resnet(mid["res2"], h, temb, groups, tiling)
 
     for i, blk in enumerate(params["up"]):
         lvl = cfg.levels - 1 - i
         for j, res in enumerate(blk["resnets"]):
             h = torch.cat([h, skips.pop()], dim=-1)
-            h = _resnet(res, h, temb, groups)
+            h = _resnet(res, h, temb, groups, tiling)
             if blk["attns"]:
                 h = _transformer(blk["attns"][j], h, context,
                                  cfg.num_heads[lvl], groups)
         if "upsample" in blk:
-            h = L.conv2d(blk["upsample"], L.upsample_nearest_2x(h))
+            h = L.conv2d_tiled(blk["upsample"], L.upsample_nearest_2x(h),
+                               tiling_x=tx, tiling_y=ty)
 
     h = L.silu(L.group_norm(params["norm_out"], h, groups))
-    return L.conv2d(params["conv_out"], h)
+    return L.conv2d_tiled(params["conv_out"], h, tiling_x=tx, tiling_y=ty)

@@ -1,14 +1,17 @@
-"""AutoencoderKL decoder (the SD VAE) on torch tensors.
+"""AutoencoderKL (the SD VAE) on torch tensors.
 
-Counterpart of gyre_tpu/models/vae.py, ``decode`` only. Every resnet's
-GN -> SiLU -> conv3x3 (eps 1e-6) goes through the fused kernels K2a/K2b and
-the mid-block single-head attention (d = 512 at full width) through the
-flash kernel K1. The params tree holds the whole autoencoder, encoder and
-``quant_conv`` too, so a loaded checkpoint is held and exported whole;
-``encode`` (img2img, inpaint) is not ported yet.
+Counterpart of gyre_tpu/models/vae.py. In the encoder and the decoder every
+resnet's GN -> SiLU -> conv3x3 (eps 1e-6) goes through the fused kernels
+K2a/K2b and the mid block's single-head attention (d = 512 at full width)
+through the flash kernel K1. ``encode`` returns the gaussian posterior's
+(mean, logvar), so the caller samples it with its own per-seed noise
+(``sample_posterior``).
 """
 
 from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
 
 from . import layers as L
 from .configs import VAEConfig
@@ -94,6 +97,32 @@ def _attn(p, x, groups):
     v = L.linear(p["v"], x)[:, :, None, :]
     o = L.attention(q, k, v).reshape(b, h * w, c)
     return L.linear(p["out"], o).reshape(b, h, w, c) + res
+
+
+def encode(params: Params, cfg: VAEConfig, x):
+    """x [B,H,W,3] in [-1,1] -> (mean, logvar), each [B,H/8,W/8,latent];
+    logvar clipped to [-30, 20]."""
+    p = params["encoder"]
+    g = cfg.norm_groups
+    h = L.conv2d(p["conv_in"], x)
+    for blk in p["down"]:
+        for res in blk["resnets"]:
+            h = _resnet(res, h, g)
+        if "downsample" in blk:
+            # diffusers pads (0,1,0,1) before the stride-2 VALID conv
+            h = L.conv2d(blk["downsample"], F.pad(h, (0, 0, 0, 1, 0, 1)),
+                         stride=2, padding=0)
+    h = _resnet(p["mid"]["res1"], h, g)
+    h = _attn(p["mid"]["attn"], h, g)
+    h = _resnet(p["mid"]["res2"], h, g)
+    h = L.silu(L.group_norm(p["norm_out"], h, g, eps=_EPS))
+    h = L.conv2d(params["quant_conv"], L.conv2d(p["conv_out"], h))
+    mean, logvar = h.chunk(2, dim=-1)
+    return mean, logvar.clamp(-30.0, 20.0)
+
+
+def sample_posterior(mean, logvar, noise):
+    return mean + torch.exp(0.5 * logvar) * noise
 
 
 def decode(params: Params, cfg: VAEConfig, z):

@@ -8,6 +8,12 @@ package's and free of Pillow; ``decode_png``, ``encode_webp`` and
 is not installed those three raise NotImplementedError naming it, so a
 WebP answer or an uploaded image answers UNIMPLEMENTED while PNG answers
 go on working.
+
+The image tensor ops the generation modes need, on [B,H,W,C] tensors:
+``normalise``, ``gaussian_blur`` (edge-replicated, separable),
+``to_grayscale`` (depth2img's fallback depth map) and ``match_histograms``
+(the inpaint outmask composite). The other tensor ops of the JAX file
+belong to the adjustments (ROADMAP D1).
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ import struct
 import zlib
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 
 def pil_image():
@@ -98,3 +106,77 @@ def encode_png(img: np.ndarray,
             + _png_text_chunks(metadata or {})
             + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
             + _png_chunk(b"IEND", b""))
+
+
+# ------------------------------------------------------------ tensor ops
+
+
+def normalise(img, r_from: float = 0.0, r_to: float = 1.0):
+    """Each image's values mapped linearly onto [r_from, r_to]."""
+    lo = img.amin(dim=(1, 2, 3), keepdim=True)
+    hi = img.amax(dim=(1, 2, 3), keepdim=True)
+    x = (img - lo) / torch.clamp(hi - lo, min=1e-8)
+    return x * (r_to - r_from) + r_from
+
+
+def _gaussian_kernel1d(sigma: float, radius: int) -> np.ndarray:
+    x = np.arange(-radius, radius + 1, dtype=np.float64)
+    k = np.exp(-0.5 * (x / max(sigma, 1e-8)) ** 2)
+    return (k / k.sum()).astype(np.float32)
+
+
+def _depthwise_1d(x, kernel, axis: int):
+    """Depthwise 1-D correlation of NHWC x along H (axis=1) or W (axis=2),
+    no padding."""
+    c = x.shape[-1]
+    k = kernel.to(x.device, x.dtype)
+    k = k.view(1, 1, -1, 1) if axis == 1 else k.view(1, 1, 1, -1)
+    y = F.conv2d(x.permute(0, 3, 1, 2), k.expand(c, 1, *k.shape[2:]),
+                 groups=c)
+    return y.permute(0, 2, 3, 1)
+
+
+def gaussian_blur(img, sigma: float):
+    """Separable gaussian blur, edge-replicated."""
+    radius = max(1, int(3 * sigma + 0.5))
+    k = torch.from_numpy(_gaussian_kernel1d(sigma, radius))
+    x = F.pad(img.permute(0, 3, 1, 2), (0, 0, radius, radius),
+              mode="replicate").permute(0, 2, 3, 1)
+    x = _depthwise_1d(x, k, 1)
+    x = F.pad(x.permute(0, 3, 1, 2), (radius, radius, 0, 0),
+              mode="replicate").permute(0, 2, 3, 1)
+    return _depthwise_1d(x, k, 2)
+
+
+def to_grayscale(img):
+    """[B,H,W,1] luma (ITU-R 601 weights) of an RGB(A) image."""
+    if img.shape[-1] == 1:
+        return img
+    w = torch.tensor([0.299, 0.587, 0.114], dtype=img.dtype,
+                     device=img.device)
+    return (img[..., :3] * w).sum(dim=-1, keepdim=True)
+
+
+def match_histograms(source, reference, mask=None):
+    """Each channel of ``source`` given ``reference``'s value distribution
+    by sorted-value quantile mapping, [B,H,W,C] each. Ranks come from a
+    stable sort, as ``jnp.argsort``'s: tied values (common in images
+    clipped to [0, 1]) keep their pixel order."""
+    b, h, w, c = source.shape
+    n = h * w
+    src = source.reshape(b, n, c)
+    ref_sorted = torch.sort(reference.reshape(b, -1, c), dim=1,
+                            stable=True).values
+    order = torch.argsort(src, dim=1, stable=True)
+    ranks = torch.argsort(order, dim=1, stable=True)
+    ref_n = ref_sorted.shape[1]
+    q = (ranks.float() / max(n - 1, 1)) * (ref_n - 1)
+    lo = torch.floor(q).long()
+    hi = torch.clamp(lo + 1, 0, ref_n - 1)
+    frac = q - lo.float()
+    mapped = (torch.gather(ref_sorted, 1, lo) * (1 - frac) +
+              torch.gather(ref_sorted, 1, hi) * frac)
+    out = mapped.reshape(b, h, w, c)
+    if mask is not None:
+        out = out * mask + source * (1 - mask)
+    return out

@@ -80,28 +80,34 @@ def karras_ramp(sigma_min: float, sigma_max: float, steps: int,
 
 
 def build_sigmas(schedule: DiffusionSchedule, steps: int, *,
+                 strength: float = 1.0,
                  karras_rho: float | None = None,
                  sigma_min: float | None = None,
                  sigma_max: float | None = None,
                  uniform_lambda: bool = False,
                  spacing: str = "linspace") -> np.ndarray:
-    """The txt2img sigma ramp for a request: [steps + 1] descending, last
-    0. The JAX package's grids: k-diffusion "linspace" (interpolated
-    fractional timesteps), the diffusers "leading" integer grid, karras,
-    or with ``uniform_lambda`` steps uniform in -log(sigma) (dpm_fast's
-    ramp; it overrides the others). (img2img's truncated ramps wait for
-    their modes.)"""
+    """The sigma ramp for a request: descending, last 0. The JAX package's
+    grids: k-diffusion "linspace" (interpolated fractional timesteps), the
+    diffusers "leading" integer grid, karras, or with ``uniform_lambda``
+    steps uniform in -log(sigma) (dpm_fast's ramp; it overrides the
+    others). With ``strength`` below 1 (img2img) it is the tail of the
+    full ramp: its last round(steps * strength) steps, at least one."""
     smin = sigma_min if sigma_min else schedule.sigma_min
     smax = sigma_max if sigma_max else schedule.sigma_max
     if uniform_lambda:
         lam = np.linspace(-np.log(smax), -np.log(smin), steps)
-        return np.append(np.exp(-lam), 0.0)
-    if karras_rho:
-        return karras_ramp(smin, smax, steps, karras_rho)
-    if spacing == "leading":
+        full = np.append(np.exp(-lam), 0.0)
+    elif karras_rho:
+        full = karras_ramp(smin, smax, steps, karras_rho)
+    elif spacing == "leading":
         ratio = max(1, schedule.num_train_timesteps // steps)
         t = np.minimum((np.arange(steps) * ratio).round()[::-1] + 1,
                        schedule.num_train_timesteps - 1).astype(np.float64)
+        full = np.append(t_to_sigma_np(schedule, t), 0.0)
     else:
         t = np.linspace(schedule.num_train_timesteps - 1, 0.0, steps)
-    return np.append(t_to_sigma_np(schedule, t), 0.0)
+        full = np.append(t_to_sigma_np(schedule, t), 0.0)
+    if strength >= 1.0:
+        return full
+    n = max(1, int(round(steps * strength)))
+    return full[len(full) - 1 - n:]

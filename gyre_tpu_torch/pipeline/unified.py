@@ -1,38 +1,51 @@
-"""UnifiedPipeline: the generation engine, txt2img slice.
+"""UnifiedPipeline: the generation engine.
 
 Counterpart of gyre_tpu/pipeline/unified.py. A request runs: prompt
-encoding (CLIP, weighted and chunked prompts), initial noise from per-seed
-generators, any of the protocol's samplers over the CFG-wrapped UNet
-(parallel CFG: both halves in one UNet call) with its per-step noise
-(``make_noise_fn``), the VAE decode and, on request, quantisation to uint8
-on the device.
+encoding (CLIP, weighted and chunked prompts), the initial latents of its
+mode, any of the protocol's samplers over the CFG-wrapped UNet (parallel
+CFG: both halves in one UNet call) with its per-step noise
+(``make_noise_fn``), the VAE decode (in overlapping tiles past
+``VAE_TILE_THRESHOLD`` latents) and, on request, quantisation to uint8 on
+the device.
+
+Modes, chosen by the request as in the JAX package: txt2img; img2img (an
+init image, VAE-encoded, noised to the last round(steps * strength) steps
+of the ramp); inpaint (a mask: on a 4-channel UNet the masked area is
+refilled and the kept area pinned every step, then composited in image
+space with its histogram matched; on the 9-channel inpainting UNet the
+mask and the masked image's latents are extra input channels); depth2img
+(the 5-channel UNet, with a depth map, or the init image's blurred
+grayscale); the hires fix (a low-resolution pass at the model's native
+size cross-injected into the target size); graft (a second engine's UNet
+blended in, ``graft_ms``); and seamless tiling on either axis.
 
 ``begin()`` returns the chunk-granular generator the shared coalescing
-dispatcher (gyre_tpu.manager.scheduler) drives: with ``chunk_steps`` and a
+dispatcher (manager/scheduler.py) drives: with ``chunk_steps`` and a
 ``stop_event`` or ``progress_callback`` it yields (steps_done, steps_total)
 after every chunk and returns None when the stop event is set. The
 sampler's carry makes a chunked run compute exactly what one run does;
 dpm_adaptive's chunks bound its solver iterations, and its progress counts
-against ceil(128 / chunk) chunks until the solver reaches sigma_min.
+against ceil(128 / chunk) chunks until the solver reaches sigma_min. The
+hires fix runs unchunked, as in the JAX package.
 
 Device work runs under ``torch.inference_mode()`` in the helpers below;
 the generator yields outside them. Not ported yet, and raising when asked
-for: img2img, inpaint, depth2img, hints, hires fix, grafting, CLIP
-guidance, tiling, token merging, sequential CFG, the tiled VAE decode of
-outputs past 1280 px, and txt2img on the 9-channel UNets of inpaint and
-depth engines.
+for: hints (ROADMAP C4) and CLIP guidance (C6).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .. import set_matmul_precision
 from ..models import clip as clip_mod
 from ..models import unet as unet_mod
 from ..models import vae as vae_mod
+from ..ops import images as I
+from ..ops.resize import resize
 from ..utils import rng
 from . import denoiser, modes, prompts, samplers
 from . import schedule as sched
@@ -40,11 +53,12 @@ from . import schedule as sched
 
 def make_noise_fn(seeds, sigmas, shape, noise_type: str, device):
     """The samplers' per-step noise: ``noise_fn(i, tag)`` -> [B, *shape]
-    f32 on ``device``, row b from seeds[b] alone. "normal" keys a draw by
-    the GLOBAL step index i (a chunked run draws what one run draws);
-    "brownian" keys it by the step's quantised log sigma,
-    int(log(max(sigma, 1e-6)) * 256), so a request draws the same noise at
-    the same sigma whatever its step count."""
+    f32 on ``device``, row b from seeds[b] (a seed, or a key of
+    utils/rng.py) alone. "normal" keys a draw by the GLOBAL step index i
+    (a chunked run draws what one run draws); "brownian" keys it by the
+    step's quantised log sigma, int(log(max(sigma, 1e-6)) * 256), so a
+    request draws the same noise at the same sigma whatever its step
+    count."""
     if noise_type not in ("normal", "brownian"):
         raise ValueError(f"unknown noise_type {noise_type!r}")
 
@@ -57,17 +71,51 @@ def make_noise_fn(seeds, sigmas, shape, noise_type: str, device):
     return noise_fn
 
 
+def _prompt_rows(prompt, negative_prompt, batch: int):
+    """(prompts, negative prompts), one of each a row; either may be a
+    per-sample list (coalesced requests) or one text for every row."""
+    pos = list(prompt) if isinstance(prompt, (list, tuple)) \
+        else [prompt] * batch
+    neg = list(negative_prompt) \
+        if isinstance(negative_prompt, (list, tuple)) \
+        else [negative_prompt] * batch
+    if len(pos) != batch or len(neg) != batch:
+        raise ValueError(
+            f"per-sample prompt lists ({len(pos)} prompts, {len(neg)} "
+            f"negatives) must be row-aligned with {batch} seeds")
+    return pos, neg
+
+
+def _tiling_axes(tiling) -> tuple[bool, bool]:
+    """The request's tiling as (x, y): a bool for both axes, or "x", "y",
+    "xy", "both" or "true"."""
+    if isinstance(tiling, str):
+        return (tiling in ("x", "xy", "both", "true"),
+                tiling in ("y", "xy", "both", "true"))
+    return bool(tiling), bool(tiling)
+
+
 class UnifiedPipeline:
-    """Bundles one engine's models and serves generation requests."""
+    """Bundles one engine's models and serves generation requests.
+    ``graft_ms``: a second engine's ModelSet, grafted on top of this one's
+    in every request (the engine's ``graft:`` parameter)."""
 
-    # latent size above which the JAX package decodes in tiles
+    # latents past which the VAE decodes in overlapping tiles of VAE_TILE
+    # latents, VAE_TILE_OVERLAP of them feathered at each seam (the JAX
+    # package's values; tests lower them on both pipelines)
     VAE_TILE_THRESHOLD = 160
+    VAE_TILE = 96
+    VAE_TILE_OVERLAP = 16
 
-    def __init__(self, modelset, compute_dtype=torch.bfloat16):
+    def __init__(self, modelset, compute_dtype=torch.bfloat16,
+                 graft_ms=None):
         set_matmul_precision()
         self.ms = modelset
         self.compute_dtype = compute_dtype
         self.device = modelset.device
+        self.graft_ms = graft_ms
+        self._graft_pipe = (UnifiedPipeline(graft_ms, compute_dtype)
+                            if graft_ms is not None else None)
 
     @property
     def schedule(self) -> sched.DiffusionSchedule:
@@ -102,17 +150,9 @@ class UnifiedPipeline:
     @torch.inference_mode()
     def _contexts(self, prompt, negative_prompt, batch: int, guided: bool,
                   clip_layer: int):
-        """(ctx_uncond, ctx_cond), each [B, T, D]. Prompts may be per-sample
-        lists (coalesced requests)."""
-        pos = list(prompt) if isinstance(prompt, (list, tuple)) \
-            else [prompt] * batch
-        neg = list(negative_prompt) \
-            if isinstance(negative_prompt, (list, tuple)) \
-            else [negative_prompt] * batch
-        if len(pos) != batch or len(neg) != batch:
-            raise ValueError(
-                f"per-sample prompt lists ({len(pos)} prompts, {len(neg)} "
-                f"negatives) must be row-aligned with {batch} seeds")
+        """(ctx_uncond, ctx_cond), each [B, T, D]. Prompts may be
+        per-sample lists (coalesced requests)."""
+        pos, neg = _prompt_rows(prompt, negative_prompt, batch)
         chunks = self.chunk_count(*(pos + neg))
         # encode each distinct text once
         texts = list(dict.fromkeys(pos + (neg if guided else [])))
@@ -122,34 +162,97 @@ class UnifiedPipeline:
         ctx_u = enc[[row[t] for t in neg]] if guided else ctx_g
         return ctx_u, ctx_g
 
+    @torch.inference_mode()
+    def _graft_contexts(self, prompt, negative_prompt, batch: int,
+                        guided: bool):
+        """The grafted model's (ctx_uncond, ctx_cond): its own towers on
+        the request's first prompt, padded to the chunks of the request's
+        prompts."""
+        pos, neg = _prompt_rows(prompt, negative_prompt, batch)
+        enc = self._graft_pipe.encode_prompt_list(
+            [pos[0]] + ([neg[0] or ""] if guided else []),
+            self.chunk_count(*(pos + neg)))
+        ctx_g = enc[:1].expand(batch, -1, -1)
+        return (enc[1:].expand(batch, -1, -1) if guided else ctx_g), ctx_g
+
     # ---------------------------------------------------------------- VAE
 
     @torch.inference_mode()
+    def vae_encode(self, images, keys):
+        """images [B,H,W,3] in [0,1] -> scaled latents [B,H/8,W/8,4] f32,
+        the posterior sampled with each key's "vae" noise."""
+        cfg = self.ms.config.vae
+        x = images.to(self.compute_dtype) * 2.0 - 1.0
+        mean, logvar = vae_mod.encode(self.ms.vae_params, cfg, x)
+        noise = rng.batched_stream_normal(keys, "vae", 0, mean.shape[1:],
+                                          self.device)
+        z = vae_mod.sample_posterior(mean, logvar, noise.to(mean.dtype))
+        return (z * cfg.scaling_factor).float()
+
+    @torch.inference_mode()
     def vae_decode(self, latents):
-        """scaled latents [B,h,w,4] -> images [B,8h,8w,3] f32 in [0,1]."""
+        """scaled latents [B,h,w,4] -> images [B,8h,8w,3] f32 in [0,1];
+        past VAE_TILE_THRESHOLD latents in overlapping tiles."""
         if max(latents.shape[1:3]) > self.VAE_TILE_THRESHOLD:
-            raise NotImplementedError(
-                "tiled VAE decode (outputs past 1280 px) is not ported to "
-                "gyre_tpu_torch yet")
+            return self._vae_decode_tiled(latents)
+        return self._vae_decode_whole(latents)
+
+    def _vae_decode_whole(self, latents):
         cfg = self.ms.config.vae
         z = (latents / cfg.scaling_factor).to(self.compute_dtype)
         img = vae_mod.decode(self.ms.vae_params, cfg, z)
         return (img.float() * 0.5 + 0.5).clamp(0.0, 1.0)
 
+    def _vae_decode_tiled(self, latents):
+        """Decode in VAE_TILE-latent tiles every VAE_TILE - 2 *
+        VAE_TILE_OVERLAP latents (the last tile flush with the edge), each
+        tile weighted by a ramp that rises over its outer VAE_TILE_OVERLAP
+        latents, and the weighted sum normalised; accumulated on the
+        device."""
+        t, ov, factor = self.VAE_TILE, self.VAE_TILE_OVERLAP, 8
+        b, lh, lw, _ = latents.shape
+        step = t - 2 * ov
+        out = torch.zeros((b, lh * factor, lw * factor, 3),
+                          dtype=torch.float32, device=latents.device)
+        weight = torch.zeros((1, lh * factor, lw * factor, 1),
+                             dtype=torch.float32, device=latents.device)
+        ramp = np.minimum(np.arange(t * factor) + 1,
+                          np.arange(t * factor)[::-1] + 1)
+        ramp = np.minimum(ramp / (ov * factor), 1.0).astype(np.float32)
+        feather = torch.from_numpy(
+            (ramp[:, None] * ramp[None, :])[None, :, :, None]).to(
+                latents.device)
+        ys = sorted({min(y, lh - t) for y in range(0, max(lh - ov, 1), step)})
+        xs = sorted({min(x, lw - t) for x in range(0, max(lw - ov, 1), step)})
+        n = t * factor
+        for y in ys:
+            for x in xs:
+                dec = self._vae_decode_whole(latents[:, y:y + t, x:x + t])
+                oy, ox = y * factor, x * factor
+                out[:, oy:oy + n, ox:ox + n] += dec * feather
+                weight[:, oy:oy + n, ox:ox + n] += feather
+        return out / torch.clamp(weight, min=1e-6)
+
     # ------------------------------------------------------------- denoise
 
-    def _denoiser(self, ctx_u, ctx_g, guidance_scale, guided: bool):
-        ucfg = self.ms.config.unet
+    def _denoiser(self, ctx_u, ctx_g, guidance_scale, guided: bool,
+                  tiling=(False, False), wrap_model=None, ms=None):
+        """denoise(x, sigma) -> x0 through ``ms``'s UNet (this engine's by
+        default), its input built by ``wrap_model`` (inpaint9, depth2img)
+        and CFG-guided when ``guided``."""
+        ms = ms or self.ms
+        ucfg = ms.config.unet
         cdt = self.compute_dtype
 
         def raw_unet(x, t, context):
-            return unet_mod.apply(self.ms.unet_params, ucfg, x.to(cdt), t,
-                                  context.to(cdt)).float()
+            return unet_mod.apply(ms.unet_params, ucfg, x.to(cdt), t,
+                                  context.to(cdt), tiling=tiling).float()
 
+        model_fn = wrap_model(raw_unet) if wrap_model else raw_unet
         if guided:
-            model = denoiser.cfg_model(raw_unet, ctx_u, ctx_g, guidance_scale)
+            model = denoiser.cfg_model(model_fn, ctx_u, ctx_g, guidance_scale)
         else:
-            model = denoiser.plain_model(raw_unet, ctx_g)
+            model = denoiser.plain_model(model_fn, ctx_g)
         return denoiser.make_denoiser(model, self.schedule)
 
     @torch.inference_mode()
@@ -168,6 +271,72 @@ class UnifiedPipeline:
     @torch.inference_mode()
     def _to_uint8(self, images):
         return (images * 255.0 + 0.5).clamp(0, 255).to(torch.uint8)
+
+    def _image(self, a):
+        """A request's image (numpy or tensor, [B,H,W,C]) as f32 on the
+        pipeline's device."""
+        if not torch.is_tensor(a):
+            a = torch.from_numpy(np.array(a, dtype=np.float32))
+        return a.to(self.device, torch.float32)
+
+    @torch.inference_mode()
+    def _mode_inputs(self, mode, keys, batch, height, width, strength,
+                     init, mask_image, depth_map, masked_area_init):
+        """(init_latents, mask_keep, extra channels) of a request, f32 on
+        the device; ``init`` is its init image on the device, or None."""
+        factor = 8
+        lh, lw = height // factor, width // factor
+        init_latents = torch.zeros((batch, lh, lw, 4), device=self.device)
+        mask_keep = torch.ones((batch, lh, lw, 1), device=self.device)
+        extra = None
+        if init is not None:
+            init_latents = self.vae_encode(init, keys)
+        if mask_image is not None:
+            # latent-resolution mask by an 8x8 box downscale; 1 keeps
+            m = self._image(mask_image).reshape(batch, lh, factor, lw,
+                                                factor, -1).mean(dim=(2, 4))
+            mask_keep = 1.0 - m[..., :1]
+            hard_keep = (mask_keep > 0.5).float()
+            if mode == "inpaint":
+                if strength >= 1.0 and masked_area_init == "shaped":
+                    init_latents = modes.shaped_noise_fill(
+                        init_latents, hard_keep, keys)
+                elif masked_area_init in ("zero", "random"):
+                    init_latents = modes.masked_area_fill(
+                        init_latents, hard_keep, keys, masked_area_init)
+            else:
+                # inpaint9: the masked image's latents are extra channels,
+                # encoded with the init image's "vae" noise; the canvas
+                # starts from the encoded init image plus full noise
+                masked = init * resize(hard_keep, (height, width), "nearest")
+                extra = self.vae_encode(masked, keys)
+                mask_keep = hard_keep
+        if mode == "depth2img":
+            # the 5th channel: a latent-size depth map in [-1, 1]
+            if depth_map is None and init is not None:
+                depth_map = I.normalise(I.gaussian_blur(
+                    I.to_grayscale(init), 2.0))
+            if depth_map is None:
+                raise ValueError("depth2img engine needs a depth_map or "
+                                 "init image")
+            d = resize(self._image(depth_map)[..., :1], (lh, lw), "bilinear")
+            dmin = d.amin(dim=(1, 2, 3), keepdim=True)
+            dmax = d.amax(dim=(1, 2, 3), keepdim=True)
+            extra = 2.0 * (d - dmin) / torch.clamp(dmax - dmin, min=1e-6) \
+                - 1.0
+        return init_latents, mask_keep, extra
+
+    @torch.inference_mode()
+    def _composite(self, images, init, mask_keep, height, width):
+        """The image-space outmask: generated pixels histogram-matched to
+        the init image (unless it is near constant), and every pixel the
+        upsampled mask keeps fully taken from the init image."""
+        mk = resize(mask_keep, (height, width), "bilinear")
+        hard = (mk >= 1.0).float()
+        gen = images
+        if float(init.std(unbiased=False)) > 0.02:
+            gen = I.match_histograms(images, init)
+        return init * hard + gen * (1 - hard)
 
     # ------------------------------------------------------------ generate
 
@@ -197,6 +366,9 @@ class UnifiedPipeline:
                   sampler: str = "k_dpmpp_2m",
                   seeds=(0,),
                   guidance_scale=7.5,
+                  init_image=None,          # [B,H,W,3] in [0,1]
+                  mask_image=None,          # [B,H,W,1], 1 = regenerate
+                  strength: float = 0.8,
                   eta: float | None = None,
                   churn: float = 0.0,
                   churn_tmin: float = 0.0,
@@ -206,46 +378,64 @@ class UnifiedPipeline:
                   karras_rho: float | None = None,
                   sigma_min: float | None = None,
                   sigma_max: float | None = None,
+                  masked_area_init: str = "shaped",
+                  tiling: bool | str = False,
+                  depth_map=None,           # [B,H,W,1], depth2img UNets
+                  hires_fix: bool | None = None,
+                  hires_oos_fraction: float = 0.25,
+                  hints=None,
+                  clip_guidance_scale: float = 0.0,
                   clip_layer: int = 0,
                   noise_type: str = "normal",
                   progress_callback=None,
                   stop_event=None,
                   chunk_steps: int = 0,
                   return_latents: bool = False,
-                  output_dtype: str | None = None,
-                  init_image=None,
-                  mask_image=None,
-                  tiling: bool = False):
-        unported = [name for name, asked in (
-            ("init_image", init_image is not None),
-            ("mask_image", mask_image is not None), ("tiling", tiling))
+                  output_dtype: str | None = None):
+        unported = [f"{name} (ROADMAP {item})" for name, item, asked in (
+            ("hints", "C4", bool(hints)),
+            ("clip_guidance_scale", "C6", clip_guidance_scale > 0))
             if asked]
         if unported:
             raise NotImplementedError(
-                f"{', '.join(unported)}: not ported to gyre_tpu_torch yet "
-                "(ROADMAP C2)")
-        ucfg = self.ms.config.unet
-        if ucfg.in_channels != ucfg.out_channels:
-            raise NotImplementedError(
-                f"txt2img on a {ucfg.in_channels}-channel UNet (an inpaint "
-                "or depth engine) needs its mode, which is not ported to "
-                "gyre_tpu_torch yet (ROADMAP C2)")
+                f"{', '.join(unported)}: not ported to gyre_tpu_torch yet")
+        ms = self.ms
+        ucfg = ms.config.unet
         factor = 8
         if height % factor or width % factor:
             raise ValueError(f"height and width must be multiples of "
                              f"{factor}, got {height}x{width}")
         lh, lw = height // factor, width // factor
-        seeds = list(seeds)
-        batch = len(seeds)
+        keys = list(seeds)
+        batch = len(keys)
 
+        mode = "txt2img"
+        if init_image is not None:
+            mode = "img2img"
+        if mask_image is not None:
+            mode = "inpaint9" if ucfg.in_channels == 9 else "inpaint"
+        elif ucfg.in_channels == 5:
+            mode = "depth2img"
+        if ucfg.in_channels == 9 and mode != "inpaint9":
+            raise ValueError("a 9-channel inpainting UNet needs an init "
+                             "image and a mask")
+        if mode == "inpaint9" and init_image is None:
+            raise ValueError("inpainting on a 9-channel UNet needs an init "
+                             "image")
+
+        full_strength = mode == "txt2img" or init_image is None or (
+            mask_image is not None and strength >= 1.0)
         sigmas = sched.build_sigmas(
-            self.schedule, steps, karras_rho=karras_rho,
-            sigma_min=sigma_min, sigma_max=sigma_max,
+            self.schedule, steps,
+            strength=1.0 if full_strength else min(strength, 1.0),
+            karras_rho=karras_rho, sigma_min=sigma_min, sigma_max=sigma_max,
             uniform_lambda=(sampler == "dpm_fast"),
             spacing=("leading"
                      if sampler in samplers.DIFFUSERS_GRID_SAMPLERS
                      else "linspace"))
         n_steps = len(sigmas) - 1
+        # the last sigma before 0, the end of the blend's progress
+        sigma_last = max(float(sigmas[-2]), 1e-3)
         # default eta: 1 for the ancestral, SDE and ddpm samplers, else 0
         if eta is None:
             eta = 1.0 if ("ancestral" in sampler or "sde" in sampler
@@ -264,14 +454,89 @@ class UnifiedPipeline:
 
         ctx_u, ctx_g = self._contexts(prompt, negative_prompt, batch, guided,
                                       clip_layer)
-        dn = self._denoiser(ctx_u, ctx_g, gs_arg, guided)
-        x = self._initial(seeds, lh, lw, float(sigmas[0]))
+        init = None if init_image is None else self._image(init_image)
+        init_latents, mask_keep, extra = self._mode_inputs(
+            mode, keys, batch, height, width, strength, init, mask_image,
+            depth_map, masked_area_init)
+        tiling_xy = _tiling_axes(tiling)
+
+        wrap_model = None
+        if mode == "inpaint9":
+            wrap_model = modes.make_inpaint9_inputs(mask_keep, extra)
+        elif mode == "depth2img":
+            wrap_model = modes.make_extra_channels_wrapper(extra)
+        dn_base = self._denoiser(ctx_u, ctx_g, gs_arg, guided, tiling_xy,
+                                 wrap_model)
+        if self._graft_pipe is not None:
+            gms = self._graft_pipe.ms
+            if gms.schedule.prediction_type != "epsilon":
+                raise NotImplementedError(
+                    f"graft onto a {gms.schedule.prediction_type} model is "
+                    "not ported to gyre_tpu_torch yet (ROADMAP C5)")
+            gctx_u, gctx_g = self._graft_contexts(
+                prompt, negative_prompt, batch, guided)
+            dn_top = self._denoiser(gctx_u, gctx_g, gs_arg, guided,
+                                    tiling_xy, ms=gms)
+            dn_base = modes.make_graft(keys)(
+                dn_base, dn_top, modes.log_progress(float(sigmas[0]),
+                                                    sigma_last))
+        dn, final_blend = dn_base, None
+        if mode == "inpaint":
+            wrap, final_blend = modes.make_inpaint_blend(
+                init_latents, mask_keep, float(sigmas[0]), sigma_last)
+            dn = wrap(dn_base)
+
+        # hires fix: past the model's native size, a native-size pass
+        # cross-injected into the target size (not with inpaint9)
+        hires = None
+        natural = ms.config.sample_size
+        if hires_fix and max(lh, lw) > natural and mode != "inpaint9":
+            mult = 2 ** (ucfg.levels - 1)        # the UNet's size divisor
+            area = float(natural * natural) * (1.0 + hires_oos_fraction)
+            nh = int(round((area * lh / lw) ** 0.5 / mult)) * mult
+            nw = int(round(area / max(nh, 1) / mult)) * mult
+            nh, nw = min(max(nh, mult), lh), min(max(nw, mult), lw)
+            if (nh, nw) != (lh, lw):
+                hires = (nh, nw)
+
+        shape = (lh, lw, ucfg.out_channels)
+        unpack = None
+        if hires is not None:
+            nh, nw = hires
+            hwrap, pack, unpack = modes.make_hires_fix(keys, nh, nw, lh, lw)
+            # the per-step inpaint blend applies at the target size only
+            dn = hwrap(dn_base, dn, modes.log_progress(float(sigmas[0]),
+                                                       sigma_last))
+            with torch.inference_mode():
+                if mode == "txt2img":
+                    hi = modes.txt2img_initial(keys, shape, float(sigmas[0]),
+                                               self.device)
+                    lo = modes.txt2img_initial(
+                        rng.substream(keys, "hires_lo"), (nh, nw, shape[-1]),
+                        float(sigmas[0]), self.device)
+                else:
+                    hi = modes.img2img_initial(init_latents, keys,
+                                               float(sigmas[0]))
+                    lo = modes.img2img_initial(
+                        resize(init_latents, (nh, nw), "bicubic"), keys,
+                        float(sigmas[0]))
+                x = pack(lo, hi)
+            noise_keys = rng.substream(keys, "lo") + keys
+        else:
+            if mode == "txt2img":
+                x = self._initial(keys, lh, lw, float(sigmas[0]))
+            else:
+                with torch.inference_mode():
+                    x = modes.img2img_initial(init_latents, keys,
+                                              float(sigmas[0]))
+            noise_keys = keys
         carry = samplers.init_carry(sampler, x)
-        noise_fn = make_noise_fn(seeds, sigmas, tuple(x.shape[1:]),
-                                 noise_type, self.device)
+        noise_fn = make_noise_fn(noise_keys, sigmas, shape, noise_type,
+                                 self.device)
 
         chunked = bool(chunk_steps) and chunk_steps < n_steps and (
-            progress_callback is not None or stop_event is not None)
+            hires is None) and (progress_callback is not None or
+                                stop_event is not None)
         seg_len = chunk_steps if chunked else n_steps
         loop_total = n_steps
         adaptive = sampler == "dpm_adaptive"
@@ -295,9 +560,16 @@ class UnifiedPipeline:
                     return None
                 yield done, loop_total
 
+        if unpack is not None:
+            x = unpack(x)[1]
+        if final_blend is not None:
+            with torch.inference_mode():
+                x = final_blend(x)
         if return_latents:
             return x
         images = self.vae_decode(x)
+        if mask_image is not None and init is not None:
+            images = self._composite(images, init, mask_keep, height, width)
         if output_dtype == "uint8":
             images = self._to_uint8(images)
         return images

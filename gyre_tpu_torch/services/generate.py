@@ -1,20 +1,21 @@
-"""GenerationService: the gRPC Generate surface, txt2img slice.
+"""GenerationService: the gRPC Generate surface.
 
 Counterpart of gyre_tpu/services/generate.py. A Request carrying text
-prompts (negative prompts as negative weights), size, steps, samples,
-seeds, a sampler, cfg_scale, eta, sigma limits / karras rho and clip_layer
-runs through the shared dispatcher and streams one Answer per image, as
-PNG or WebP by the request's accept list (``negotiate_mime``). Every
-protocol sampler is served, with eta, churn (and its sigma range) and the
-noise type.
-ChainGenerate runs its stages with RETURN routing and ``on_status``
-targets, and the Async trio runs a request in the background, as the JAX
-servicer does. Every other request feature (image, mask, LoRA, embedding
-and hint artifacts, so also ChainGenerate's PASS routing; schedule strength,
-CLIP guidance, masked-area init, hires fix, tiling) answers
-UNIMPLEMENTED, naming its ROADMAP item where one is planned; none is
-ignored silently. The safety checker is not ported (ROADMAP C6): as the
-JAX package without trained checker weights, nothing is flagged.
+prompts (negative prompts as negative weights), image, mask and depth
+artifacts (an init image's alpha as its mask; ``ref`` artifacts resolved
+by uuid or id within the request), size, steps, samples, seeds, a sampler,
+cfg_scale, eta, churn, sigma limits / karras rho, clip_layer, the
+schedule's start (img2img strength), the masked-area init, the hires fix
+and tiling runs through the shared dispatcher and streams one Answer per
+image, as PNG or WebP by the request's accept list (``negotiate_mime``),
+then the artifacts it asked to have echoed back. ChainGenerate runs its
+stages with RETURN and PASS routing (a stage's images become the next
+stage's init images), and the Async trio runs a request in the background,
+as the JAX servicer does. Every other request feature (LoRA and embedding
+artifacts, hint images, artifact adjustments, CLIP guidance) answers
+UNIMPLEMENTED, naming its ROADMAP item; none is ignored silently. The
+safety checker is not ported (ROADMAP C6): as the JAX package without
+trained checker weights, nothing is flagged.
 """
 
 from __future__ import annotations
@@ -38,10 +39,10 @@ from .exception_to_grpc import exception_to_grpc
 logger = logging.getLogger(__name__)
 
 MAX_SEED = 2 ** 32 - 1
-# engine `options:` the port applies as request defaults, and the sizes
-# the manager's prewarm runs
+# engine `options:` the port applies as request defaults, the sizes the
+# manager's prewarm runs, and the engine the manager grafts on top
 _ENGINE_OPTIONS = ("sampler", "karras_rho", "churn", "warmup_lms",
-                   "ddim_cutoff", "prewarm_sizes")
+                   "ddim_cutoff", "hires_fix", "prewarm_sizes", "graft")
 
 
 @dataclass
@@ -67,32 +68,81 @@ class ExtractedParams:
     karras_rho: float | None = None
     noise_type: str = "normal"
     clip_layer: int = 0
+    strength: float = 1.0
+    init_image: np.ndarray | None = None
+    mask_image: np.ndarray | None = None
+    depth_map: np.ndarray | None = None
+    masked_area_init: str = "shaped"
+    hires_fix: bool | None = None
+    hires_oos_fraction: float = 0.25
+    tiling: bool | str = False
+    echo_artifacts: list = field(default_factory=list)
 
 
-# the ROADMAP item that ports each kind of artifact prompt; image and mask
-# artifacts (init images, inpainting, ChainGenerate's PASS routing) are C2
+# the ROADMAP item that ports each kind of artifact prompt not served yet
 _ARTIFACT_ITEMS = {pb.ARTIFACT_LORA: "C3", pb.ARTIFACT_TOKEN_EMBEDDING: "C3",
                    pb.ARTIFACT_HINT_IMAGE: "C4"}
 
 
 def _unported(feature: str, item: str | None = None):
-    where = f"ROADMAP {item}" if item else "txt2img only"
+    where = f" (ROADMAP {item})" if item else ""
     raise NotImplementedError(
-        f"{feature} is not ported to gyre_tpu_torch yet ({where})")
+        f"{feature} is not ported to gyre_tpu_torch yet{where}")
 
 
 def extract_params(request: pb.Request) -> ExtractedParams:
     p = ExtractedParams(engine_id=request.engine_id,
                         request_id=request.request_id)
+
+    def artifact_image(art, stage=pb.ARTIFACT_AFTER_ADJUSTMENTS, depth=0):
+        """An artifact's image [1,H,W,C] in [0,1], following ``ref``
+        artifacts (by uuid or id) within the request."""
+        if depth > 8:
+            raise ValueError("artifact reference chain too deep (cycle?)")
+        # the stages that apply the artifact's own adjustment chains
+        if (stage != pb.ARTIFACT_BEFORE_ADJUSTMENTS and
+                len(art.adjustments)) or (
+                stage == pb.ARTIFACT_AFTER_POSTADJUSTMENTS and
+                len(art.postAdjustments)):
+            _unported("artifact adjustments", "D1")
+        if art.WhichOneof("data") != "ref":
+            return I.decode_png(art.binary)
+        want = art.ref.WhichOneof("reference")
+        for other in request.prompt:
+            if other.WhichOneof("prompt") != "artifact":
+                continue
+            o = other.artifact
+            if (want == "uuid" and o.uuid == art.ref.uuid) or \
+                    (want == "id" and o.id == art.ref.id):
+                return artifact_image(o, art.ref.stage, depth + 1)
+        raise ValueError(f"artifact reference {art.ref.uuid or art.ref.id!r}"
+                         " matches no artifact in this request")
+
     pos, neg = [], []
     for prompt in request.prompt:
         which = prompt.WhichOneof("prompt")
         if which == "artifact":
-            # image and mask artifacts are also what ChainGenerate's PASS
-            # routing injects
-            kind = prompt.artifact.type
-            _unported(f"{pb.ArtifactType.Name(kind)} prompts",
-                      _ARTIFACT_ITEMS.get(kind, "C2"))
+            art = prompt.artifact
+            if art.type == pb.ARTIFACT_IMAGE:
+                img = artifact_image(art)
+                p.init_image = img[..., :3]
+                init = prompt.HasField("parameters") and \
+                    prompt.parameters.init
+                # an init image's alpha, where not opaque, is its mask
+                if init and img.shape[-1] == 4 and \
+                        (img[..., 3:] < 0.999).any():
+                    p.mask_image = 1.0 - img[..., 3:]
+                if prompt.echo_back:
+                    p.echo_artifacts.append(art)
+            elif art.type == pb.ARTIFACT_MASK:
+                p.mask_image = artifact_image(
+                    art, pb.ARTIFACT_AFTER_POSTADJUSTMENTS)[..., :1]
+            elif art.type == pb.ARTIFACT_DEPTH:
+                p.depth_map = artifact_image(art)[..., :1]
+            else:
+                _unported(f"{pb.ArtifactType.Name(art.type)} prompts",
+                          _ARTIFACT_ITEMS.get(art.type))
+            continue
         if which != "text":
             _unported(f"prompt {which or 'without content'}")
         weight = 1.0
@@ -127,8 +177,8 @@ def extract_params(request: pb.Request) -> ExtractedParams:
         p.sampler = PROTO_SAMPLERS[img.transform.diffusion]
         p.sampler_set = True
     for sp in img.parameters:
-        if sp.HasField("schedule"):
-            _unported("schedule (img2img strength)", "C2")
+        if sp.HasField("schedule") and sp.schedule.HasField("start"):
+            p.strength = sp.schedule.start
         if sp.HasField("guidance"):
             _unported("CLIP guidance", "C6")
         if not sp.HasField("sampler"):
@@ -155,12 +205,29 @@ def extract_params(request: pb.Request) -> ExtractedParams:
             p.noise_type = ("brownian" if s.noise_type ==
                             pb.SAMPLER_NOISE_BROWNIAN else "normal")
     if img.HasField("masked_area_init"):
-        _unported("masked_area_init", "C2")
-    if img.HasField("hires") and img.hires.enable:
-        _unported("hires fix", "C2")
-    if img.tiling or img.tiling_x or img.tiling_y:
-        _unported("tiling", "C2")
+        p.masked_area_init = {
+            pb.MASKED_AREA_INIT_ZERO: "zero",
+            pb.MASKED_AREA_INIT_RANDOM: "random",
+            pb.MASKED_AREA_INIT_ORIGINAL: "original",
+        }.get(img.masked_area_init, "shaped")
+    if img.HasField("hires"):
+        p.hires_fix = img.hires.enable
+        if img.hires.HasField("oos_fraction"):
+            p.hires_oos_fraction = img.hires.oos_fraction
+    if img.tiling:
+        p.tiling = True
+    elif img.tiling_x or img.tiling_y:
+        p.tiling = ("x" if img.tiling_x else "") + \
+            ("y" if img.tiling_y else "")
     return p
+
+
+def _rows(image, n: int):
+    """A request's [1,H,W,C] image broadcast to n rows (a dispatcher
+    batch of the request's seeds), or None."""
+    if image is None:
+        return None
+    return np.broadcast_to(image, (n,) + image.shape[1:])
 
 
 def fill_seeds(p: ExtractedParams) -> list[int]:
@@ -235,7 +302,9 @@ class GenerationServiceServicer:
         self._async_lock = threading.Lock()
 
     def _run_request(self, request: pb.Request, stop_event=None):
-        """Yield (image uint8 [H,W,3], seed, index, metadata)."""
+        """Yield (image uint8 [H,W,3], seed, index, metadata) for each
+        image, then (artifact, None, index, None) for each artifact the
+        request asked to have echoed back."""
         p = extract_params(request)
         engine_id = p.engine_id or self.manager.default_engine_id()
         opts = self.manager.spec(engine_id).options or {}
@@ -248,6 +317,8 @@ class GenerationServiceServicer:
             p.karras_rho = float(opts["karras_rho"])
         if not p.churn and "churn" in opts:
             p.churn = float(opts["churn"])
+        if p.hires_fix is None and "hires_fix" in opts:
+            p.hires_fix = bool(opts["hires_fix"])
         seeds = fill_seeds(p)
         meta = {"prompt": p.prompt, "negative_prompt": p.negative_prompt,
                 "engine": engine_id, "sampler": p.sampler, "steps": p.steps,
@@ -271,6 +342,13 @@ class GenerationServiceServicer:
                     noise_type=p.noise_type,
                     warmup_lms=bool(opts.get("warmup_lms", False)),
                     ddim_cutoff=float(opts.get("ddim_cutoff", 0.0)),
+                    init_image=_rows(p.init_image, len(batch)),
+                    mask_image=_rows(p.mask_image, len(batch)),
+                    depth_map=_rows(p.depth_map, len(batch)),
+                    strength=p.strength,
+                    masked_area_init=p.masked_area_init, tiling=p.tiling,
+                    hires_fix=p.hires_fix,
+                    hires_oos_fraction=p.hires_oos_fraction,
                     output_dtype="uint8", stop_event=stop_event,
                     chunk_steps=10 if stop_event is not None else 0)
                 try:
@@ -288,6 +366,9 @@ class GenerationServiceServicer:
                           dict(meta, seed=seed, index=index).items()}
                     yield imgs[j], seed, index, md
                     index += 1
+            for art in p.echo_artifacts:
+                yield art, None, index, None
+                index += 1
 
     def _answers(self, request: pb.Request, stop_event):
         """The Answers of one request, one image each."""
@@ -301,10 +382,14 @@ class GenerationServiceServicer:
                 store.store("prompts", [p.text for p in request.prompt
                                         if p.WhichOneof("prompt") == "text"])
         recv = int(time.time())
-        for img, seed, index, md in self._run_request(request, stop_event):
-            with STATS.timer("encode"):
-                artifact = image_to_artifact(img, index=index, seed=seed,
-                                             metadata=md, mime=mime)
+        for item, seed, index, md in self._run_request(request, stop_event):
+            if isinstance(item, pb.Artifact):        # echoed back
+                artifact = item
+            else:
+                with STATS.timer("encode"):
+                    artifact = image_to_artifact(item, index=index,
+                                                 seed=seed, metadata=md,
+                                                 mime=mime)
             yield pb.Answer(
                 answer_id=f"{request.request_id}-{index}",
                 request_id=request.request_id,
@@ -322,7 +407,7 @@ class GenerationServiceServicer:
     def ChainGenerate(self, request: pb.ChainRequest, context):
         """Staged generation with RETURN and PASS routing: a stage's
         artifacts are returned, or passed to its ``on_status`` targets as
-        init images (which answer UNIMPLEMENTED until C2)."""
+        their init images."""
         stop_event = threading.Event()
         if context is not None and hasattr(context, "add_callback"):
             context.add_callback(stop_event.set)

@@ -36,6 +36,7 @@ from gyre_tpu_torch.manager.manager import EngineManager as TManager
 from gyre_tpu_torch.ops import images as timages
 from gyre_tpu_torch.services import generate as tgen
 from gyre_tpu_torch.utils.debug_recorder import DebugRecorder
+from test_torch_modes import one_torch_thread  # noqa: F401
 
 ENGINES = [{"id": "tiny", "name": "Tiny", "default": True,
             "model": "preset/test"}]
@@ -231,20 +232,156 @@ def test_chain_return_matches_jax(port, ref):
     assert [a.artifacts[0].seed for a in t] == [41, 42]
 
 
-def test_chain_pass_is_unimplemented_naming_c2(port):
-    context = TContext()
-    with pytest.raises(TAbortError):
-        list(port.ChainGenerate(_chain(tpb, pass_to="s1"), context))
-    assert context.code == grpc.StatusCode.UNIMPLEMENTED
-    assert "ROADMAP C2" in context.details
+def test_chain_pass_routes_images_as_init_matches_jax(port, ref):
+    """PASS: stage 0's image becomes stage 1's init image (img2img), and
+    only stage 1 answers, as in the JAX servicer."""
+    t = list(port.ChainGenerate(_chain(tpb, pass_to="s1"), TContext()))
+    j = list(ref.ChainGenerate(_chain(jpb, pass_to="s1"), JContext()))
+    assert _structure(t) == _structure(j)
+    assert [a.answer_id for a in t] == ["chain-s1"]
+    assert timages.decode_png(t[0].artifacts[0].binary).shape == \
+        (1, 64, 64, 3)
+
+
+def _png(h=64, w=64, c=3, seed=0, alpha=None):
+    img = np.random.default_rng(seed).integers(0, 256, (h, w, c), np.uint8)
+    if alpha is not None:
+        img[..., 3] = alpha
+    return timages.encode_png(img)
+
+
+def _artifact(req, kind, binary=None, init=False, echo=False, **fields):
+    prompt = req.prompt.add()
+    prompt.artifact.type = kind
+    if binary is not None:
+        prompt.artifact.binary = binary
+    for k, v in fields.items():
+        setattr(prompt.artifact, k, v)
+    if init:
+        prompt.parameters.init = True
+    prompt.echo_back = echo
+    return prompt
+
+
+def _mode_request(pb, case):
+    """A request exercising one of the mode fields of extract_params."""
+    req = _request(pb)
+    img = req.image
+    if case == "init_alpha":
+        alpha = np.full((64, 64), 255, np.uint8)
+        alpha[8:40, 8:40] = 0
+        _artifact(req, pb.ARTIFACT_IMAGE, _png(c=4, alpha=alpha), init=True,
+                  echo=True)
+    elif case == "init_opaque_and_mask":
+        _artifact(req, pb.ARTIFACT_IMAGE, _png(c=4, alpha=255), init=True)
+        _artifact(req, pb.ARTIFACT_MASK, _png(c=1, seed=1))
+    elif case == "depth":
+        _artifact(req, pb.ARTIFACT_IMAGE, _png())
+        _artifact(req, pb.ARTIFACT_DEPTH, _png(seed=2))
+    elif case in ("ref_uuid", "ref_id"):
+        _artifact(req, pb.ARTIFACT_IMAGE, _png(seed=3), init=True,
+                  uuid="u-1", id=5)
+        mask = _artifact(req, pb.ARTIFACT_MASK)
+        if case == "ref_uuid":
+            mask.artifact.ref.uuid = "u-1"
+        else:
+            mask.artifact.ref.id = 5
+    elif case == "schedule":
+        img.parameters.add().schedule.start = 0.35
+    elif case.startswith("masked_area_"):
+        img.masked_area_init = getattr(pb, "MASKED_AREA_INIT_" +
+                                       case[len("masked_area_"):].upper())
+    elif case == "hires":
+        img.hires.enable = True
+        img.hires.oos_fraction = 0.4
+    elif case == "hires_off":
+        img.hires.enable = False
+    elif case in ("tiling", "tiling_x", "tiling_y", "tiling_xy"):
+        if case == "tiling":
+            img.tiling = True
+        img.tiling_x = case in ("tiling_x", "tiling_xy")
+        img.tiling_y = case in ("tiling_y", "tiling_xy")
+    return req
+
+
+MODE_CASES = ["init_alpha", "init_opaque_and_mask", "depth", "ref_uuid",
+              "ref_id", "schedule", "masked_area_zero", "masked_area_random",
+              "masked_area_original", "hires", "hires_off", "tiling",
+              "tiling_x", "tiling_y", "tiling_xy"]
+MODE_FIELDS = ("strength", "masked_area_init", "hires_fix",
+               "hires_oos_fraction", "tiling")
+
+
+@pytest.mark.parametrize("case", MODE_CASES)
+def test_mode_fields_extract_as_jax(case):
+    t = tgen.extract_params(_mode_request(tpb, case))
+    j = jgen.extract_params(_mode_request(jpb, case))
+    assert [getattr(t, f) for f in MODE_FIELDS] == \
+        [getattr(j, f) for f in MODE_FIELDS]
+    for f in ("init_image", "mask_image", "depth_map"):
+        a, b = getattr(t, f), getattr(j, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            np.testing.assert_array_equal(a, b)
+    assert [a.SerializeToString() for a in t.echo_artifacts] == \
+        [a.SerializeToString() for a in j.echo_artifacts]
+
+
+def test_generate_with_init_image_matches_jax_in_structure(port, ref):
+    """img2img over Generate, its init image echoed back after the image,
+    as the JAX servicer answers."""
+    t = list(port.Generate(_mode_request(tpb, "init_alpha"), TContext()))
+    j = list(ref.Generate(_mode_request(jpb, "init_alpha"), JContext()))
+    assert _structure(t) == _structure(j)
+    assert [a.artifacts[0].type for a in t] == [tpb.ARTIFACT_IMAGE] * 2
+    assert t[1].artifacts[0].binary == _mode_request(
+        tpb, "init_alpha").prompt[2].artifact.binary
+
+
+def test_mode_fields_reach_the_pipeline(port, monkeypatch):
+    """Init image, mask and depth map broadcast to the dispatcher's rows,
+    and the strength, masked-area init, tiling and hires fields (the
+    engine's `hires_fix:` option when the request sets none)."""
+    seen = []
+
+    def submit(pipe, kwargs, stop_event=None, solo=False):
+        seen.append(kwargs)
+        done = Future()
+        done.set_result(np.zeros((len(kwargs["seeds"]), 64, 64, 3),
+                                 np.uint8))
+        return done
+
+    monkeypatch.setattr(port.manager.dispatcher, "submit", submit)
+    monkeypatch.setattr(port.manager.spec("tiny"), "options",
+                        {"hires_fix": True})
+    req = _mode_request(tpb, "init_opaque_and_mask")
+    _artifact(req, tpb.ARTIFACT_DEPTH, _png(seed=4))
+    req.image.samples = 3
+    req.image.parameters.add().schedule.start = 0.5
+    req.image.masked_area_init = tpb.MASKED_AREA_INIT_ZERO
+    req.image.tiling_y = True
+    assert len(list(port.Generate(req, TContext()))) == 3
+    req.image.hires.enable = False
+    list(port.Generate(req, TContext()))
+    first = seen[0]
+    assert [len(k["seeds"]) for k in seen] == [2, 1, 2, 1]   # batch_max 2
+    for name, c in (("init_image", 3), ("mask_image", 1), ("depth_map", 1)):
+        assert first[name].shape == (2, 64, 64, c)
+    assert (first["strength"], first["masked_area_init"], first["tiling"],
+            first["hires_fix"]) == (0.5, "zero", "y", True)
+    assert seen[2]["hires_fix"] is False
 
 
 @pytest.mark.parametrize("kind,item", [
-    ("ARTIFACT_IMAGE", "C2"), ("ARTIFACT_MASK", "C2"),
+    ("ARTIFACT_TOKEN_EMBEDDING", "C3"), ("adjusted", "D1"),
     ("ARTIFACT_LORA", "C3"), ("ARTIFACT_HINT_IMAGE", "C4")])
 def test_artifact_prompts_name_their_item(kind, item):
     req = _request(tpb)
-    req.prompt.add().artifact.type = getattr(tpb, kind)
+    if kind == "adjusted":
+        prompt = _artifact(req, tpb.ARTIFACT_IMAGE, _png(), init=True)
+        prompt.artifact.adjustments.add().invert.SetInParent()
+    else:
+        req.prompt.add().artifact.type = getattr(tpb, kind)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tgen.extract_params(req)
 

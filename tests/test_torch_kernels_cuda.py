@@ -14,7 +14,8 @@ of its 8 x 16 (or 8 x 8) pixel tile; then the kernels' own paths at
 main-path sizes: K1 at T >= 1024 for every SD1.5 head dim and on strided
 [B,T,H,D] views, K2b's split-K (M <= 512) and a ragged C = 960, K2a's
 cluster launch at path shapes of batch 1 and 8, ragged, with vectors that
-straddle two groups and under cancellation. Bounds as in chip_smoke.py:
+straddle two groups and under cancellation; both at the hires fix's
+ragged UNet levels (9, 18, 36) and on a non-square canvas. Bounds as in chip_smoke.py:
 2e-2 of max |plain| in bf16 (compounded bf16 rounding, ~5x margin), 1e-3
 for K2a's f32 statistics.
 """
@@ -210,6 +211,33 @@ def test_conv_ragged_c(gen, b, h, w, c, co):
     chain_ref = FC.gn_silu_conv3x3_plain(x, gs, gb, wt, cb, groups=32,
                                          eps=1e-5)
     assert _rel(chain, chain_ref) <= BF16_BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c,co,d", [
+    (9, 9, 2560, 1280, 160), (18, 18, 1280, 1280, 160),
+    (36, 36, 640, 640, 80), (64, 96, 320, 320, 40)])
+def test_kernels_at_ragged_latent_sizes(gen, h, w, c, co, d):
+    """The hires fix's low-resolution UNet levels (9, 18, 36: tiles that
+    overhang the image) and a non-square 64 x 96 canvas, at the batch of a
+    CFG call (2): K2a + K2b on a level's conv, K1 on its self-attention
+    and its cross-attention against 77 tokens, 8 heads."""
+    b = 2
+    x = (torch.randn((b, h, w, c), generator=gen, device="cuda") +
+         1.0).to(torch.bfloat16)
+    gs = 1 + 0.1 * _randn(gen, c, dtype=torch.float32)
+    gb = 0.1 * _randn(gen, c, dtype=torch.float32)
+    wt = _randn(gen, 3, 3, c, co) * (9 * c) ** -0.5
+    cb = 0.1 * _randn(gen, co, dtype=torch.float32)
+    chain = FC.gn_silu_conv3x3(x, gs, gb, wt, cb, groups=32, eps=1e-5)
+    chain_ref = FC.gn_silu_conv3x3_plain(x, gs, gb, wt, cb, groups=32,
+                                         eps=1e-5)
+    assert _rel(chain, chain_ref) <= BF16_BOUND
+    q = _btd(gen, b, h * w, 8, d)
+    for tk in (h * w, 77):
+        k, v = _btd(gen, b, tk, 8, d), _btd(gen, b, tk, 8, d)
+        assert _rel(A.attention(q, k, v), _attention_ref(q, k, v)) <= \
+            BF16_BOUND
 
 
 @pytest.mark.cuda

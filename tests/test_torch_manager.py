@@ -33,6 +33,9 @@ from gyre_tpu_torch.manager.weights import WeightResolver
 from gyre_tpu_torch.models import configs as tconfigs
 from gyre_tpu_torch.models import load as tload
 from gyre_tpu_torch.models import modelset as tms
+from gyre_tpu_torch.ops import images as I
+from gyre_tpu_torch.pipeline.unified import UnifiedPipeline
+from test_torch_modes import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SD15 = "stable-diffusion-v1-5"
@@ -312,18 +315,32 @@ def test_shipped_config_serves(served):
         response_deserializer=epb.Engines.FromString)(
             epb.ListEnginesRequest(), timeout=30).engine
     ready = {e.id: e.ready for e in engines}
-    # the 9-channel engine's weights are resident, but its mode is not
-    # ported (C2): not ready
-    assert ready[SD15] and not ready[INPAINT]
+    # the 9-channel engine's weights are resident and its mode is served
+    assert ready[SD15] and ready[INPAINT]
     assert not ready["stable-diffusion-v2-1"]          # disabled
 
 
-def test_nine_channel_engine_is_unimplemented(served):
+def test_nine_channel_engine_serves_inpainting(served):
+    """The 9-channel engine answers a PNG for an init image whose alpha is
+    the mask; without a mask it refuses the request."""
     _, channel = served
+    rgba = np.full((64, 64, 4), 200, np.uint8)
+    rgba[16:48, 16:48, 3] = 0                    # transparent: regenerate
+    req = _request(INPAINT)
+    init = req.prompt.add()
+    init.artifact.type = pb.ARTIFACT_IMAGE
+    init.artifact.binary = I.encode_png(rgba)
+    init.parameters.init = True
+    arts = [a for ans in _generate(channel)(req, timeout=120)
+            for a in ans.artifacts]
+    assert len(arts) == 1 and arts[0].binary.startswith(b"\x89PNG")
+    px = I.decode_png(arts[0].binary)[0]
+    assert px.shape == (64, 64, 3)
+    assert (np.round(px[:8] * 255) == 200).all()       # kept: the init
     with pytest.raises(grpc.RpcError) as err:
         list(_generate(channel)(_request(INPAINT), timeout=60))
-    assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED
-    assert "C2" in err.value.details()
+    assert err.value.code() == grpc.StatusCode.INVALID_ARGUMENT
+    assert "mask" in err.value.details()
 
 
 def _ready_by_rpc_and_status(manager):
@@ -372,25 +389,25 @@ def test_task_engine_is_not_ready(weight_root):
         m.dispatcher.stop()
 
 
-def test_nine_channel_engine_is_not_ready(weight_root):
+def test_nine_channel_engine_is_ready(weight_root):
     m = _manager([{"id": "gen", "model": "org/tiny", "default": True},
                   {"id": "inpaint", "model": "org/tiny-inpaint"}],
                  weight_root)
     try:
         m.load_engines()
         assert {s["id"]: s["weights"] for s in m.status()} == \
-            {"gen": "real", "inpaint": "real"}        # resident, and yet
+            {"gen": "real", "inpaint": "real"}
         listed, status = _ready_by_rpc_and_status(m)
-        assert listed == status == {"gen": True, "inpaint": False}
+        assert listed == status == {"gen": True, "inpaint": True}
     finally:
         m.dispatcher.stop()
 
 
 def test_shipped_config_reports_only_servable_engines_ready(shipped,
                                                             weight_root):
-    """Every enabled engine of the shipped config/engines.yaml: only the
-    4-channel SD 1.5 engine is ready; the 9-channel inpainting engine and
-    every task engine are not."""
+    """Every enabled engine of the shipped config/engines.yaml: the
+    4-channel SD 1.5 engine and the 9-channel inpainting engine are ready;
+    every task engine is not."""
     manager = tserver.build_manager(tserver.parse_args(
         ["--enginecfg", shipped, "--device", "cpu", "--dtype", "float32",
          "--weight_root", weight_root]))
@@ -402,9 +419,8 @@ def test_shipped_config_reports_only_servable_engines_ready(shipped,
                  if s.enabled and s.task != "generate"}
         assert {"esrgan-x4", "midas-depth", "mlsd-lines", "dexined-edge",
                 "lineart"} <= tasks
-        assert {i for i in enabled if status[i]} == {SD15}
-        assert {i for i in enabled if listed.get(i)} == {SD15}
-        assert INPAINT in enabled and not status[INPAINT]
+        assert {i for i in enabled if status[i]} == {SD15, INPAINT}
+        assert {i for i in enabled if listed.get(i)} == {SD15, INPAINT}
     finally:
         manager.dispatcher.stop()
 
@@ -444,3 +460,29 @@ def test_save_safetensors_exports_for_the_jax_loader(shipped, weight_root,
     jax_state = jload.export_unet_state(back.unet_params, back.config.unet)
     for k, v in port.items():
         assert np.array_equal(v.numpy(), jax_state[k]), k
+
+
+def test_graft_engine_pipeline_grafts_the_named_engine(weight_root):
+    """An engine's `graft:` builds its pipeline with that engine's
+    ModelSet on top (the JAX manager's rule, tests/test_hints.py): the same
+    tensors, and an image that differs from either engine alone."""
+    m = _manager([{"id": "root", "model": {"preset": "test", "seed": 0},
+                   "default": True, "graft": "top"},
+                  {"id": "top", "model": {"preset": "test", "seed": 9}}],
+                 weight_root)
+    try:
+        m.load_engines()
+        pipe = m.pipeline("root")
+        assert pipe.graft_ms is m.modelset("top")
+        kw = dict(prompt="a tree", height=64, width=64, steps=3,
+                  sampler="k_euler", seeds=[5], guidance_scale=7.5)
+        grafted = pipe(**kw)
+        assert grafted.shape == (1, 64, 64, 3)
+        assert bool(grafted.isfinite().all())
+        root_alone = UnifiedPipeline(m.modelset("root"),
+                                     compute_dtype=torch.float32)(**kw)
+        for alone in (root_alone, m.pipeline("top")(**kw)):
+            assert float((grafted - alone).abs().max()) > 1e-4
+        assert m.pipeline("top").graft_ms is None
+    finally:
+        m.dispatcher.stop()

@@ -25,6 +25,7 @@ from gyre_tpu_torch.models import modelset as tms
 from gyre_tpu_torch.pipeline import modes as tmodes
 from gyre_tpu_torch.pipeline import unified as tunified
 from gyre_tpu_torch.utils import rng as trng
+from test_torch_modes import one_torch_thread  # noqa: F401
 
 CFG = configs.SD_TEST
 REQUEST = dict(prompt="a (red:1.2) boat at [dusk]", negative_prompt="blurry",
@@ -114,8 +115,8 @@ def test_noise_is_per_seed():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"mask_image": np.ones((1, 64, 64, 1), np.float32)}, "mask_image"),
-    ({"tiling": True}, "tiling"),
+    ({"hints": [{"image": np.ones((1, 64, 64, 3), np.float32)}]}, "C4"),
+    ({"clip_guidance_scale": 0.5}, "C6"),
 ])
 def test_unported_options_raise(pipes, kwargs, match):
     _, tpipe = pipes
@@ -125,7 +126,11 @@ def test_unported_options_raise(pipes, kwargs, match):
 
 @pytest.mark.parametrize("kwargs", [
     {}, {"spacing": "leading"}, {"karras_rho": 7.0},
-    {"karras_rho": 7.0, "sigma_min": 0.1, "sigma_max": 10.0}])
+    {"karras_rho": 7.0, "sigma_min": 0.1, "sigma_max": 10.0},
+    # img2img's truncated ramps, for every spacing
+    {"strength": 0.6}, {"strength": 0.33, "spacing": "leading"},
+    {"strength": 0.5, "karras_rho": 7.0},
+    {"strength": 0.01, "uniform_lambda": True}, {"strength": 1.0}])
 def test_sigma_ramps_match_jax(kwargs):
     from gyre_tpu.pipeline import schedule as jsched
     from gyre_tpu_torch.pipeline import schedule as tsched

@@ -15,7 +15,7 @@ import pytest
 
 from test_torch_pipeline_samplers import (REQUEST, check_chunked,  # noqa: F401
                                           check_single_scan, jax_noise,
-                                          pipes)
+                                          one_torch_thread, pipes)
 
 SAMPLERS = ["plms", "dpm_fast", "dpm_adaptive"]
 

@@ -31,6 +31,7 @@ from gyre_tpu_torch.pipeline import modes as tmodes
 from gyre_tpu_torch.pipeline import samplers as tsamp
 from gyre_tpu_torch.pipeline import unified as tunified
 from gyre_tpu_torch.utils import rng as trng
+from test_torch_modes import one_torch_thread  # noqa: F401
 
 CFG = configs.SD_TEST
 REQUEST = dict(prompt="a (red:1.2) boat at [dusk]", negative_prompt="blurry",

@@ -29,6 +29,7 @@ from gyre_tpu_torch import server as tserver
 from gyre_tpu_torch.generated import generation_pb2 as pb
 from gyre_tpu_torch.http import grpc_web, stability_rest
 from gyre_tpu_torch.ops import images as I
+from test_torch_modes import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOKEN = "sekrit"
@@ -234,15 +235,42 @@ def test_rest_text_to_image(served, accept):
     assert I.png_metadata(png)["seed"] == "7"
 
 
-def test_rest_image_to_image_names_c2(served):
+def test_rest_image_to_image(served):
+    """REST image-to-image answers a PNG of the init image's size."""
     init = base64.b64encode(I.encode_png(
         np.full((64, 64, 3), 128, np.uint8))).decode()
-    status, _, body = _post(
+    status, headers, body = _post(
         served["url"] + "/v1/generation/test-engine/image-to-image",
-        {"text_prompts": [{"text": "a cat"}], "height": 64, "width": 64,
-         "steps": 2, "init_image": init}, BEARER)
-    assert status == 500
-    assert "ROADMAP C2" in json.loads(body)["message"]
+        json.dumps({"text_prompts": [{"text": "a cat"}], "height": 64,
+                    "width": 64, "steps": 2, "seed": 9, "init_image": init,
+                    "image_strength": 0.4}).encode(),
+        {**BEARER, "Content-Type": "application/json",
+         "Accept": "image/png"})
+    assert status == 200, body
+    assert headers["Content-Type"] == "image/png"
+    assert I.decode_png(body).shape == (1, 64, 64, 3)
+
+
+def test_rest_masking_keeps_the_unmasked_area(served):
+    """REST image-to-image/masking: where the mask is black (kept), the
+    answer is the init image's pixels."""
+    init = np.full((64, 64, 3), 90, np.uint8)
+    mask = np.zeros((64, 64, 3), np.uint8)
+    mask[24:56, 24:56] = 255                      # white: regenerate
+    status, headers, body = _post(
+        served["url"] + "/v1/generation/test-engine/image-to-image/masking",
+        json.dumps({"text_prompts": [{"text": "a cat"}], "height": 64,
+                    "width": 64, "steps": 2, "seed": 9,
+                    "init_image": base64.b64encode(
+                        I.encode_png(init)).decode(),
+                    "mask_image": base64.b64encode(
+                        I.encode_png(mask)).decode(),
+                    "mask_source": "MASK_IMAGE_WHITE"}).encode(),
+        {**BEARER, "Content-Type": "application/json",
+         "Accept": "image/png"})
+    assert status == 200, body
+    px = np.round(I.decode_png(body)[0] * 255)
+    assert px.shape == (64, 64, 3) and (px[:8] == 90).all()
 
 
 def test_grpc_gateway(served):

@@ -15,6 +15,7 @@ from gyre_tpu.generated import engines_pb2 as epb
 from gyre_tpu.generated import generation_pb2 as pb
 from gyre_tpu_torch.manager.manager import EngineManager
 from gyre_tpu_torch.server import build_server
+from test_torch_modes import one_torch_thread  # noqa: F401
 
 ENGINES = [{"id": "tiny", "default": True, "model": {"preset": "test"}}]
 KW = dict(prompt="a boat", negative_prompt="", height=64, width=64, steps=4,
@@ -107,19 +108,22 @@ def test_grpc_generate_every_sampler(channel, sampler):
     assert arts[0].binary.startswith(b"\x89PNG\r\n\x1a\n")
 
 
-@pytest.mark.parametrize("mutate", ["mask", "init_image", "tiling"])
-def test_grpc_unported_features_are_unimplemented(channel, mutate):
+@pytest.mark.parametrize("mutate,item", [
+    ("lora", "C3"), ("hint_image", "C4"), ("clip_guidance", "C6")])
+def test_grpc_unported_features_are_unimplemented(channel, mutate, item):
     req = _request()
-    if mutate in ("mask", "init_image"):
+    if mutate in ("lora", "hint_image"):
         art = req.prompt.add()
-        art.artifact.type = pb.ARTIFACT_MASK if mutate == "mask" \
-            else pb.ARTIFACT_IMAGE
+        art.artifact.type = pb.ARTIFACT_LORA if mutate == "lora" \
+            else pb.ARTIFACT_HINT_IMAGE
         art.artifact.binary = b"\x89PNG"
-    elif mutate == "tiling":
-        req.image.tiling = True
+    else:
+        req.image.parameters.add().guidance.guidance_preset = \
+            pb.GUIDANCE_PRESET_SIMPLE
     with pytest.raises(grpc.RpcError) as err:
         list(_generate(channel)(req, timeout=60))
     assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED
+    assert f"ROADMAP {item}" in err.value.details()
 
 
 def test_grpc_list_engines(channel):

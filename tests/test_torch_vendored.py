@@ -589,3 +589,15 @@ def test_dashboard_get_me_matches():
 def test_openapi_document_is_the_copy():
     assert trouter._openapi_document() == jrouter._openapi_document()
     assert trouter._openapi_document() is not None
+
+
+@pytest.mark.parametrize("sigma,radius", [(2.0, 6), (0.6, 2), (5.0, 15)])
+def test_gaussian_kernel_is_the_copy(sigma, radius):
+    """ops/images.py's numpy gaussian kernel, copied from the JAX
+    package's module (which imports jax)."""
+    from gyre_tpu.ops import images as jimages
+    from gyre_tpu_torch.ops import images as timages
+
+    np.testing.assert_array_equal(
+        timages._gaussian_kernel1d(sigma, radius),
+        jimages._gaussian_kernel1d(sigma, radius))
