@@ -22,7 +22,10 @@ Phases, each printing one JSON object per line:
                phase (the VAE encoder, the hires fix's UNet at 128..16
                and 72..9, the VAE at 1024x1024 and in a tiled decode's
                tile), with no launches in the per-call sums and summed
-               on a "mode_shapes" line apart from the kernels line
+               on a "mode_shapes" line apart from the kernels line; and
+               at every shape the ControlNet runs at one row (hint
+               priority "hint": the guided CFG half alone) that no other
+               row has, summed on a "controlnet_shapes" line
   4. pipeline  UnifiedPipeline on full-width SD1.5 (random weights from a
                seed): 512x512, 20 steps k_dpmpp_2m, CFG 7.5 (parallel),
                bf16, chunk_steps=10 with a stop_event, uint8 on the device.
@@ -55,6 +58,38 @@ Phases, each printing one JSON object per line:
                non-constant image, wall seconds; inpaint's kept pixels
                equal to the init image; img2img, inpaint and graft equal
                to their 10-step-chunked runs in every bit
+  5c. adapters LoRA (kohya, rank 8, over every target the resolver knows,
+               UNet and text tower), LoHa, LoKr, a full diff and a TI of
+               2 vectors, made with numpy from a seed, folded into
+               adapted views by the manager (the server as main builds
+               it): each view's image differs from the base's, its folded
+               leaves equal a host f32 fold rounded to bf16 in every bit,
+               its request launches 641 / 908 / 908, and the bytes it
+               adds and the seconds its fold holds the dispatcher are
+               printed; the base engine's tensors are unchanged in every
+               bit; a plain request sent while a new LoRA's deltas are
+               rebuilt is not held for them. Over gRPC: the LoRA as the lora field, as
+               raw bytes, uploaded with cache_control and then sent as
+               its cache_id, and as a url under --local_resource, the TI
+               with token_overrides, each within 1 level of the
+               in-process image; two distinct LoRAs without a uuid give
+               two images; a base and a LoRA request queued together run
+               as two batches (two base requests merge)
+  5d. hints    ControlNets (random, with random zero convs) and a full T2I
+               adapter on SD1.5 at 512x512, 20 steps, batch 1: a
+               ControlNet at each priority, two ControlNets, ControlNet
+               + T2I, T2I at balanced and hint, a masked ControlNet
+               (HINT_CASES), each with exact launches (a ControlNet adds
+               14 K1 and 20 K2a/K2b a UNet call), an image that differs
+               from the no-hint image, and its wall seconds (median of
+               5 rounds over the plain request and every case, in
+               order and reversed by turns) beside the plain request's;
+               a zero mask and a
+               zero-initialised ControlNet give the no-hint image in
+               every bit; then the server with a hintset entry naming
+               the ControlNet saved as a checkpoint: a hint image of
+               384x640 (rescaled, lanczos3) at each priority over gRPC,
+               within 1 level of the in-process image
   6. serve     EngineManager + the coalescing dispatcher under concurrent
                requests, then two Generate calls over gRPC
   7. http      the server as main builds it (server.serve: the gRPC
@@ -306,6 +341,46 @@ def _mode_conv_shapes():
 
 
 MODE_CONV_SHAPES = _mode_conv_shapes()
+
+
+def _controlnet_shapes():
+    """(K1 rows, K2a + K2b rows) at every distinct shape that SD1.5's
+    ControlNet runs at 512x512 and phases 3's other rows lack: its down
+    path (a level's resnets and transformers, then the mid block's) at 2
+    rows (both CFG halves: the UNet's own shapes) and at 1 row (cfg_only,
+    the guided half alone). Walked from the port's ControlNet spec tree;
+    K1 rows (name, B, H, Tq, Tk, d), conv rows (name, B, H=W, C, Co,
+    eps)."""
+    from gyre_tpu_torch.models import configs, controlnet
+
+    cfg = configs.SD15.unet
+    specs = controlnet.param_specs(cfg)
+    seen_conv = {r[1:6] for r in CONV_SHAPES + MODE_CONV_SHAPES}
+    seen_attn = {r[1:6] for r in ATTN_SHAPES + MODE_ATTN_SHAPES}
+    levels = [(lvl, 64 >> lvl, blk["resnets"], blk["attns"])
+              for lvl, blk in enumerate(specs["down"])]
+    mid = specs["mid"]
+    levels.append((cfg.levels - 1, 64 >> (cfg.levels - 1),
+                   [mid["res1"], mid["res2"]], [mid["attn"]]))
+    attns, convs = [], []
+    for b in (2, 1):
+        for lvl, hw, resnets, transformers in levels:
+            for res in resnets:
+                _, _, c, co = res["conv1"]["w"].shape
+                for dims in ((b, hw, c, co, 1e-5), (b, hw, co, co, 1e-5)):
+                    if dims not in seen_conv:
+                        seen_conv.add(dims)
+                        convs.append((f"cn_b{b}_{hw}_{dims[2]}_{dims[3]}",
+                                      *dims))
+            for tr in transformers:
+                heads = cfg.num_heads[lvl]
+                d = tr["proj_in"]["w"].shape[0] // heads
+                for kind, tk in (("self", hw * hw), ("cross", 77)):
+                    dims = (b, heads, hw * hw, tk, d)
+                    if dims not in seen_attn:
+                        seen_attn.add(dims)
+                        attns.append((f"cn_b{b}_{kind}_{hw * hw}", *dims))
+    return attns, convs
 # K2a alone at two shapes of a batch-8 call, where its launch differs from
 # batch 1's: (name, B, H=W, C, eps, launches per batch-8 call). The UNet
 # runs 16 rows (8 images x 2 CFG rows), the VAE 8.
@@ -480,6 +555,12 @@ def phase_kernels():
         attn_row(*shape, 0, modes=True)
     for shape in MODE_CONV_SHAPES:
         conv_row(*shape, 0, modes=True)
+    # the ControlNet's batch-1 shapes (hint priority "hint"), tagged apart
+    cn_attn, cn_conv = _controlnet_shapes()
+    for shape in cn_attn:
+        attn_row(*shape, 0, controlnet=True)
+    for shape in cn_conv:
+        conv_row(*shape, 0, controlnet=True)
     for name, b, hw, c, eps, launches in GN_BATCH8_SHAPES:
         # not in a batch-1 call: no launches of its per-call sums
         record_stats(name, b, hw, c, eps, 0,
@@ -950,6 +1031,681 @@ def phase_modes():
         torch.cuda.empty_cache()
     if failed:
         raise AssertionError("modes: " + "; ".join(failed))
+
+
+# ------------------------------------------------------------- adapters
+
+TI_TOKEN = "<smoke-ti>"
+ADAPTER_PROMPT = REQUEST["prompt"] + " " + TI_TOKEN
+# kohya names of the LoRA targets, by the port's module names
+_KOHYA_TAILS = {"q": "to_q", "k": "to_k", "v": "to_v", "out": "to_out_0"}
+_KOHYA_RESNET = {"conv1": "conv1", "conv2": "conv2",
+                 "shortcut": "conv_shortcut", "time_emb": "time_emb_proj"}
+_KOHYA_TE = {"q": "self_attn_q_proj", "k": "self_attn_k_proj",
+             "v": "self_attn_v_proj", "out": "self_attn_out_proj"}
+
+
+def _median_wall(fn, n: int = 3):
+    """(median wall seconds of n calls of fn, each until the card is
+    done; the last call's result)."""
+    import torch
+
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return sorted(walls)[n // 2], out
+
+
+def _kohya_name(which: str, path: tuple) -> str | None:
+    """The kohya module name of a LoRA target's params path, or None."""
+    if which == "te":
+        if path[0] != "blocks":
+            return None
+        if path[2] == "attn":
+            return f"lora_te_text_model_encoder_layers_{path[1]}_" \
+                   f"{_KOHYA_TE[path[3]]}"
+        return f"lora_te_text_model_encoder_layers_{path[1]}_mlp_{path[2]}"
+    if path[0] == "mid":
+        head = ("mid_block_attentions_0" if path[1] == "attn" else
+                f"mid_block_resnets_{0 if path[1] == 'res1' else 1}")
+        rest = path[2:]
+    elif len(path) > 3 and path[2] in ("attns", "resnets"):
+        head = (f"{path[0]}_blocks_{path[1]}_"
+                f"{'attentions' if path[2] == 'attns' else 'resnets'}_"
+                f"{path[3]}")
+        rest = path[4:]
+    else:
+        return None
+    if rest[0] == "blocks":
+        b, mod = rest[1], rest[2]
+        tail = (f"{mod}_{_KOHYA_TAILS[rest[3]]}" if mod.startswith("attn")
+                else {"ff1": "ff_net_0_proj", "ff2": "ff_net_2"}.get(mod))
+        return tail and f"lora_unet_{head}_transformer_blocks_{b}_{tail}"
+    if rest[0] in ("proj_in", "proj_out"):
+        return f"lora_unet_{head}_{rest[0]}"
+    return rest[0] in _KOHYA_RESNET and \
+        f"lora_unet_{head}_{_KOHYA_RESNET[rest[0]]}" or None
+
+
+def _lora_targets(cfg):
+    """{kohya name: (which, path, Spec)} over every LoRA target of the
+    config's UNet and text tower; each name resolves back to its path."""
+    from gyre_tpu_torch.models.modelset import map_specs, model_specs
+    from gyre_tpu_torch.pipeline import lora
+
+    unet_s, _, text_s = model_specs(cfg)
+    out = {}
+    for which, specs in (("unet", unet_s), ("te", text_s[0])):
+        def visit(path, spec, which=which):
+            if path[-1] != "w" or len(path) < 3:
+                return
+            name = _kohya_name(which, path[:-1])
+            if name:
+                out[name] = (which, path[:-1], spec)
+
+        map_specs(visit, specs)
+    for name, (which, path, _) in out.items():
+        if lora.resolve_path(name) != (which, path):
+            raise AssertionError(f"{name} does not resolve to {path}")
+    return out
+
+
+def _adapter_states(cfg, seed: int = 0, rank: int = 8):
+    """{format: state dict} made with numpy from ``seed``: a kohya LoRA of
+    ``rank`` over every target, a LoHa and a LoKr over the text tower's and
+    the first and mid transformers' linear layers, a full ``diff`` on a
+    linear, a fused 3x3 conv, a 1x1 shortcut and a text layer, and a TI of
+    2 vectors; each module's delta scaled (through its alpha) to 1/10 of
+    its weights' init spread."""
+    import numpy as np
+
+    from gyre_tpu_torch.pipeline import lora
+
+    r = np.random.default_rng(seed)
+    targets = _lora_targets(cfg)
+
+    def torch_shape(spec):
+        if spec.kind == "conv_hwio":
+            kh, kw, ci, co = spec.shape
+            return (co, ci, kh, kw)
+        return spec.shape
+
+    def add(state, name, entry, spec):
+        delta = lora._rebuild_delta(
+            {k.split(".")[0]: v for k, v in entry.items()} | {"alpha": rank})
+        want = 0.1 / np.sqrt(3.0 * spec.fan_in())
+        alpha = rank * want / max(float(delta.std()), 1e-12)
+        state.update({f"{name}.{k}": v for k, v in entry.items()})
+        state[f"{name}.alpha"] = np.asarray(alpha, np.float32)
+
+    def rnd(*shape):
+        return r.standard_normal(shape).astype(np.float32)
+
+    states = {"lora": {}, "loha": {}, "lokr": {}, "diff": {}}
+    small = ("lora_te_", "lora_unet_down_blocks_0_attentions_0_",
+             "lora_unet_mid_block_attentions_0_")
+    for name, (which, path, spec) in targets.items():
+        shape = torch_shape(spec)
+        out, inn, k = shape[0], shape[1], shape[2:]
+        add(states["lora"], name, {
+            "lora_up.weight": rnd(out, rank, *((1, 1) if k else ())),
+            "lora_down.weight": rnd(rank, inn, *k)}, spec)
+        if k or not name.startswith(small):
+            continue
+        add(states["loha"], name, {
+            "hada_w1_a": rnd(out, rank), "hada_w1_b": rnd(rank, inn),
+            "hada_w2_a": rnd(out, rank), "hada_w2_b": rnd(rank, inn)}, spec)
+        add(states["lokr"], name, {"lokr_w1": rnd(4, 4),
+                                   "lokr_w2": rnd(out // 4, inn // 4)},
+            spec)
+    for name in ("lora_te_text_model_encoder_layers_0_self_attn_q_proj",
+                 "lora_unet_down_blocks_0_attentions_0_transformer_blocks_0_"
+                 "attn2_to_k", "lora_unet_down_blocks_1_resnets_0_conv1",
+                 "lora_unet_up_blocks_0_resnets_0_conv_shortcut"):
+        spec = targets[name][2]
+        states["diff"][f"{name}.diff"] = rnd(*torch_shape(spec)) * np.float32(
+            0.1 / np.sqrt(3.0 * spec.fan_in()))
+    dim = cfg.text_encoders[0].hidden_size
+    states["ti"] = {TI_TOKEN: rnd(2, dim) * np.float32(0.02)}
+    return states
+
+
+def _host_fold_check(base_ms, view_ms, state, scale):
+    """(leaves folded, leaves equal to the host fold in every bit): each
+    leaf the view does not share with the base against the base leaf plus
+    scale * delta in f32 on the host, rounded to the leaf's dtype."""
+    import numpy as np
+    import torch
+
+    from gyre_tpu_torch.models.modelset import model_specs
+    from gyre_tpu_torch.pipeline import lora
+
+    unet_s, _, text_s = model_specs(base_ms.config)
+    folded = equal = 0
+    for mod, entry in lora.group_modules(state).items():
+        which, path = lora.resolve_path(mod)
+        trees = ((base_ms.unet_params, view_ms.unet_params, unet_s)
+                 if which == "unet" else
+                 (base_ms.text_params[0], view_ms.text_params[0], text_s[0]))
+        old, new, spec = (lora._tree_get(t, path + ("w",)) for t in trees)
+        delta = lora.port_delta(lora._rebuild_delta(entry), spec.kind,
+                                old.shape)
+        host = (old.cpu().float() + torch.from_numpy(
+            delta * np.float32(scale))).to(old.dtype)
+        folded += new is not old
+        equal += bool(torch.equal(new.cpu(), host))
+    return folded, equal
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tree_leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _tree_leaves(v)
+    else:
+        yield tree
+
+
+def _serve_yaml(yaml_text: str, extra=()):
+    """(manager, Serving, tmp dir) of the server as main builds it, on
+    an engines.yaml, no token."""
+    import os
+    import tempfile
+
+    from gyre_tpu_torch import server
+
+    tmp = tempfile.mkdtemp(prefix="gyre-smoke-")
+    cfg = os.path.join(tmp, "engines.yaml")
+    with open(cfg, "w") as fh:
+        fh.write(yaml_text.replace("{tmp}", tmp))
+    args = server.parse_args(
+        ["--enginecfg", cfg, "--grpc_port", "0", "--http_port", "0",
+         "--cache_path", os.path.join(tmp, "cache"),
+         *[a.replace("{tmp}", tmp) for a in extra]])
+    manager = server.build_manager(args)
+    manager.load_engines()
+    return manager, server.serve(args, manager), tmp
+
+
+def _grpc_generate(port: int):
+    import grpc
+
+    from gyre_tpu_torch.services.generate import pb
+
+    channel = grpc.insecure_channel(f"localhost:{port}")
+    call = channel.unary_stream(
+        "/gooseai.GenerationService/Generate",
+        request_serializer=pb.Request.SerializeToString,
+        response_deserializer=pb.Answer.FromString)
+
+    def generate(req):
+        arts = _image_artifacts(list(call(req, timeout=600)))
+        return _png_pixels(arts[0].binary)
+
+    return channel, generate
+
+
+def phase_adapters():
+    """LoRA, LoHa, LoKr, a full diff and a TI on full-width SD1.5 through
+    the manager's adapted views and over gRPC (module docstring, 5c)."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    from safetensors.numpy import save as np_save
+
+    from gyre_tpu_torch import _build
+    from gyre_tpu_torch.generated import tensors_pb2 as tpb
+    from gyre_tpu_torch.models import configs
+    from gyre_tpu_torch.services.generate import pb, state_digest
+
+    states = _adapter_states(configs.SD15)
+    manager, serving, tmp = _serve_yaml(
+        "- {id: sd15, default: true, model: {preset: sd15, seed: 0}}\n",
+        ["--local_resource", "smoke={tmp}"])
+    channel = None
+    failed = []
+    try:
+        base_view = manager.dispatch_view("sd15")
+        base_ms = base_view.pipe.ms
+        snapshot = [t.clone() for t in _tree_leaves(
+            [base_ms.unet_params, base_ms.text_params])]
+        ev = threading.Event()
+        kw = dict(REQUEST, prompt=ADAPTER_PROMPT, seeds=[7],
+                  output_dtype="uint8", chunk_steps=10, stop_event=ev)
+
+        def image(view):
+            return view.pipe(**kw)[0].cpu().numpy()
+
+        image(base_view)                                 # warm-up
+        base_wall, base = _median_wall(lambda: image(base_view))
+        # the seconds of each fold the dispatcher is held for (its solo
+        # job: the uploads and adds), apart from the host work before it
+        build, job_s = manager._build_adapted, []
+
+        def timed_build(*args):
+            t0 = time.perf_counter()
+            view = build(*args)
+            torch.cuda.synchronize()
+            job_s.append(time.perf_counter() - t0)
+            return view
+        manager._build_adapted = timed_build
+        scale = 0.8
+        views = {}
+        for fmt in ("lora", "loha", "lokr", "diff", "ti"):
+            state = states[fmt]
+            t0 = time.perf_counter()
+            if fmt == "ti":
+                view = manager.adapted_pipeline(
+                    "sd15", tis=[(state, state_digest(state))])
+            else:
+                view = manager.adapted_pipeline(
+                    "sd15", loras=[(state, scale, state_digest(state))])
+            fold_s = time.perf_counter() - t0
+            dispatcher_s = job_s[-1]
+            views[fmt] = view
+            ms = view.pipe.ms
+            if fmt == "ti":
+                table = ms.text_params[0]["token_embedding"]
+                n = len(base_ms.text_params[0]["token_embedding"])
+                folded = 1
+                equal = int(torch.equal(table[n:].cpu(), torch.from_numpy(
+                    state[TI_TOKEN]).to(table.dtype)))
+            else:
+                folded, equal = _host_fold_check(base_ms, ms, state, scale)
+            base_ids = {id(t) for t in _tree_leaves(
+                [base_ms.unet_params, base_ms.text_params])}
+            added = sum(t.numel() * t.element_size() for t in _tree_leaves(
+                [ms.unet_params, ms.text_params]) if id(t) not in base_ids)
+            _build.reset_launches()
+            img = image(view)
+            launches = dict(_build.launches)
+            wall, _ = _median_wall(lambda: image(view))
+            line = {"phase": "adapters", "case": fmt, "modules": folded,
+                    "host_fold_equal": equal, "fold_s": fold_s,
+                    "dispatcher_s": dispatcher_s,
+                    "bytes_added": added, "wall_s": wall,
+                    "base_wall_s": base_wall, "launches": launches,
+                    "differs_from_base": bool((img != base).any())}
+            emit(line)
+            failed.extend(f"{fmt}: {what}" for what, bad in (
+                ("no module folded", not folded),
+                (f"{folded - equal} leaves differ from the host fold",
+                 equal != folded),
+                (f"launches {launches}", launches != EXPECTED_LAUNCHES),
+                ("image equals the base image",
+                 not line["differs_from_base"])) if bad)
+        changed = sum(not torch.equal(a, b) for a, b in zip(
+            snapshot, _tree_leaves([base_ms.unet_params,
+                                    base_ms.text_params])))
+        emit({"phase": "adapters", "check": "base_unchanged",
+              "leaves": len(snapshot), "changed": changed})
+        if changed:
+            failed.append(f"{changed} base leaves changed")
+        del snapshot
+
+        # a plain request sent while a new LoRA's deltas are rebuilt on its
+        # request's thread runs at once: the dispatcher is held only for
+        # the fold's uploads and adds
+        folds = len(job_s)
+        folding = threading.Thread(target=manager.adapted_pipeline, args=(
+            "sd15", [(states["lora"], 0.5, state_digest(states["lora"]))]))
+        t0 = time.perf_counter()
+        folding.start()
+        time.sleep(0.5)
+        t1 = time.perf_counter()
+        manager.dispatcher.submit(base_view, dict(
+            REQUEST, seeds=[7], output_dtype="uint8")).result(600)
+        during = time.perf_counter() - t1
+        folding.join()
+        manager._build_adapted = build
+        if len(job_s) != folds + 1:
+            raise AssertionError("adapters: the fold during a plain "
+                                 "request did not run")
+        emit({"phase": "adapters", "check": "plain_during_fold",
+              "wall_s": during, "fold_s": time.perf_counter() - t0,
+              "dispatcher_s": job_s[-1], "base_wall_s": base_wall})
+        # held for the host work too, it would wait most of the fold
+        if during > job_s[-1] + 4 * base_wall:
+            failed.append(f"a plain request took {during:.2f} s during a "
+                          "fold")
+
+        # over gRPC: the LoRA as the lora field, raw bytes, an upload with
+        # cache_control then its cache_id, and a url under
+        # --local_resource; the TI with token_overrides
+        lora = states["lora"]
+        raw = np_save(lora)
+        with open(os.path.join(tmp, "smoke-lora.safetensors"), "wb") as fh:
+            fh.write(raw)
+        channel, generate = _grpc_generate(serving.grpc_port)
+        want = {"lora": image(views["lora"]), "ti": image(views["ti"])}
+
+        def request(kind, fill, seed=7):
+            req = _generate_request(seed)
+            req.prompt[0].text = ADAPTER_PROMPT
+            prompt = req.prompt.add()
+            prompt.artifact.type = (pb.ARTIFACT_TOKEN_EMBEDDING
+                                    if kind == "ti" else pb.ARTIFACT_LORA)
+            fill(prompt)
+            return req
+
+        def lora_field(prompt, state=lora):
+            for k, v in state.items():
+                prompt.artifact.lora.lora.tensors.add(key=k, tensor=tpb.Tensor(
+                    dtype=tpb.DT_FLOAT32, shape=list(np.shape(v)),
+                    data=np.ascontiguousarray(v, np.float32).tobytes()))
+            prompt.parameters.weight = scale
+
+        def with_data(**fields):
+            def fill(prompt):
+                for k, v in fields.items():
+                    if k == "cache_control":
+                        prompt.artifact.cache_control.cache_id = v
+                        prompt.artifact.cache_control.max_age = 600
+                    else:
+                        setattr(prompt.artifact, k, v)
+                prompt.parameters.weight = scale
+            return fill
+
+        def ti_fill(prompt):
+            prompt.artifact.token_embedding.text = "<orig>"
+            vec = states["ti"][TI_TOKEN]
+            prompt.artifact.token_embedding.tensor.CopyFrom(tpb.Tensor(
+                dtype=tpb.DT_FLOAT32, shape=list(vec.shape),
+                data=vec.tobytes()))
+            prompt.parameters.token_overrides.add(original_token="<orig>",
+                                                  token=TI_TOKEN)
+
+        cases = [("lora_field", "lora", lora_field),
+                 ("binary", "lora", with_data(binary=raw)),
+                 ("cache_control", "lora", with_data(binary=raw,
+                                                     cache_control="smk")),
+                 ("cache_id", "lora", with_data(cache_id="smk")),
+                 ("url", "lora", with_data(
+                     url="file:smoke/smoke-lora.safetensors")),
+                 ("ti_overrides", "ti", ti_fill)]
+        for name, kind, fill in cases:
+            t0 = time.perf_counter()
+            got = generate(request(kind, fill))
+            diff = int(np.abs(got.astype(int) - want[kind].astype(int)).max())
+            emit({"phase": "adapters", "grpc": name,
+                  "wall_s": time.perf_counter() - t0,
+                  "max_diff_to_in_process": diff})
+            if diff > 1:
+                failed.append(f"gRPC {name}: {diff} levels off the "
+                              "in-process image")
+        # two distinct LoRAs without a uuid give two images
+        other = {k: v[::-1].copy() if v.ndim else v
+                 for k, v in states["lora"].items()}
+        a = generate(request("lora", lora_field, seed=8))
+        b = generate(request("lora", lambda p: lora_field(p, other), seed=8))
+        emit({"phase": "adapters", "check": "distinct_loras",
+              "images_differ": bool((a != b).any())})
+        if not (a != b).any():
+            failed.append("two distinct LoRAs gave one image")
+
+        # a base and a LoRA request queued together are not merged; two
+        # base requests are
+        start = len(manager.dispatcher.dispatched)
+        jobs = [(base_view, 11), (base_view, 12), (views["lora"], 13)]
+        futures = [manager.dispatcher.submit(
+            v, dict(REQUEST, seeds=[s], output_dtype="uint8"))
+            for v, s in jobs]
+        for f in futures:
+            f.result(600)
+        batches = sorted(n for n, _ in manager.dispatcher.dispatched[start:])
+        emit({"phase": "adapters", "check": "coalescing",
+              "jobs_per_batch": batches})
+        if batches != [1, 2]:
+            failed.append(f"base and LoRA jobs batched as {batches}")
+    finally:
+        if channel is not None:
+            channel.close()
+        serving.stop(0)
+        manager.dispatcher.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("adapters: " + "; ".join(failed))
+
+
+# ---------------------------------------------------------------- hints
+
+# launches of one hinted batch-1 request (20 UNet calls): a ControlNet
+# adds its 7 transformers x 2 attentions (K1) and 10 resnets x 2 fused
+# convs (K2a, K2b) to every UNet call; a T2I adapter runs no kernel
+HINT_CASES = {
+    # name: (hints, K1, K2)
+    "controlnet_balanced": ([("cn", "balanced")], 921, 1308),
+    "controlnet_prompt": ([("cn", "prompt")], 921, 1308),
+    "controlnet_hint": ([("cn", "hint")], 921, 1308),
+    "two_controlnets": ([("cn", "balanced"), ("cn2", "hint")], 1201, 1708),
+    "controlnet_t2i": ([("cn", "prompt"), ("t2i", "balanced")], 921, 1308),
+    "t2i_balanced": ([("t2i", "balanced")], 641, 908),
+    "t2i_hint": ([("t2i", "hint")], 641, 908),
+    "controlnet_masked": ([("cn", "balanced", "mask")], 921, 1308),
+}
+
+
+# the hint keys of each protocol priority
+HINT_PRIORITIES = {"balanced": {}, "prompt": {"soft_injection": True},
+                   "hint": {"soft_injection": True, "cfg_only": True}}
+HINT_ROUNDS = 5
+
+
+def _live_controlnet(cfg, seed: int):
+    """A random ControlNet whose zero convs (and the conditioning
+    embedding's output conv) are random too, so that it conditions."""
+    import torch
+
+    from gyre_tpu_torch.models import controlnet
+
+    p = controlnet.random_controlnet(cfg, seed=seed, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 100)
+    with torch.inference_mode():
+        for zc in p["zero_convs"] + [p["mid_zero"],
+                                     p["cond_embed"]["conv_out"]]:
+            zc["w"] = (torch.randn(zc["w"].shape, generator=gen,
+                                   device="cuda") * 0.1).to(zc["w"].dtype)
+    return p
+
+
+def _hint_image(h: int, w: int, seed: int):
+    """A hint-like image [1,H,W,3] in [0,1]: rings and bars."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    a = 0.5 + 0.5 * np.sin(40 * np.hypot(yy - 0.5, xx - 0.4) + seed)
+    b = (np.sin(25 * (xx + 0.3 * yy) + seed) > 0).astype(np.float64)
+    return np.stack([a, b, a * b], -1)[None].astype(np.float32)
+
+
+def _hint_kit():
+    """(models, hint images, the masked cases' mask, hints(spec, mask)):
+    two live ControlNets and a full T2I adapter at SD1.5 width on the
+    card; hints() makes a request's hints from a HINT_CASES spec."""
+    import torch
+
+    from gyre_tpu_torch.models import configs, t2i_adapter
+
+    ucfg = configs.SD15.unet
+    models = {"cn": ("controlnet", _live_controlnet(ucfg, 1)),
+              "cn2": ("controlnet", _live_controlnet(ucfg, 2)),
+              "t2i": ("t2i", t2i_adapter.random_t2i_adapter(
+                  t2i_adapter.FULL_CHANNELS, seed=3, device="cuda"))}
+    cond = [torch.from_numpy(_hint_image(512, 512, s)).cuda()
+            for s in (0, 1)]
+    mask = torch.zeros((1, 512, 512, 1), device="cuda")
+    mask[:, :, 256:] = 1.0
+
+    def hints(spec, masks=None):
+        out = []
+        for i, (name, prio, *extra) in enumerate(spec):
+            kind, params = models[name]
+            out.append({"params": params, "kind": kind, "image": cond[i],
+                        "scale": 1.0, **HINT_PRIORITIES[prio],
+                        **({"mask": masks} if extra else {})})
+        return out
+    return models, cond, mask, hints
+
+
+def phase_hints():
+    """ControlNets and T2I adapters on full-width SD1.5 (module docstring,
+    5d)."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from gyre_tpu_torch import _build
+    from gyre_tpu_torch.models import configs, controlnet, load
+    from gyre_tpu_torch.models.modelset import random_preset
+    from gyre_tpu_torch.ops.images import encode_png, rescale
+    from gyre_tpu_torch.pipeline.unified import UnifiedPipeline
+    from gyre_tpu_torch.services.generate import pb
+
+    ucfg = configs.SD15.unet
+    models, cond, mask, hints = _hint_kit()
+    ms = random_preset("sd15", seed=0, device="cuda")
+    pipe = UnifiedPipeline(ms, compute_dtype=torch.bfloat16)
+    kw = dict(REQUEST, seeds=[9], output_dtype="uint8")
+
+    failed = []
+    pipe(**kw)                                           # warm-up
+    base = pipe(**kw)
+    images, lines = {}, {}
+    for name, (spec, k1, k2) in HINT_CASES.items():
+        pipe(**kw, hints=hints(spec, mask))              # warm-up
+        _build.reset_launches()
+        img = pipe(**kw, hints=hints(spec, mask))
+        launches = dict(_build.launches)
+        expect = {"flash_attention": k1, "gn_stats": k2,
+                  "gn_silu_conv3x3": k2}
+        images[name] = img
+        lines[name] = line = {
+            "phase": "hints", "case": name, "launches": launches,
+            "expected_launches": expect,
+            "differs_from_base": bool((img != base).any()),
+            "image_min": int(img.min()), "image_max": int(img.max())}
+        failed.extend(f"{name}: {what}" for what, bad in (
+            (f"launches {launches} != {expect}", launches != expect),
+            ("image equals the no-hint image", not line["differs_from_base"]),
+            ("constant image", line["image_min"] == line["image_max"])) if bad)
+    # walls: HINT_ROUNDS rounds over the plain request and every case, in
+    # order on even rounds and in reverse on odd ones, so that no case
+    # always follows the same one; a case's wall is its median
+    calls = {"plain": lambda: pipe(**kw), **{
+        name: functools.partial(lambda spec: pipe(**kw, hints=hints(
+            spec, mask)), spec) for name, (spec, _, _) in HINT_CASES.items()}}
+    walls = {name: [] for name in calls}
+    for r in range(HINT_ROUNDS):
+        for name in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+            walls[name].append(_median_wall(calls[name], 1)[0])
+    median = {n: sorted(w)[len(w) // 2] for n, w in walls.items()}
+    for name, line in lines.items():
+        emit({**line, "wall_s": median[name], "walls_s": walls[name],
+              "base_wall_s": median["plain"]})
+    # cfg_only against the like-for-like case (prompt: the same layer
+    # weights on both halves), paired within each round
+    emit({"phase": "hints", "check": "walls", "rounds": HINT_ROUNDS,
+          "plain_walls_s": walls["plain"],
+          "cfg_only_saving_s": [p - h for p, h in zip(
+              walls["controlnet_prompt"], walls["controlnet_hint"])]})
+    prios = [images[f"controlnet_{p}"] for p in HINT_PRIORITIES]
+    if any(torch.equal(a, b) for i, a in enumerate(prios)
+           for b in prios[i + 1:]):
+        failed.append("two hint priorities gave one image")
+    # exact: a zero mask, and a ControlNet with zero convs (as
+    # random_controlnet makes one), give the no-hint image in every bit
+    zero = torch.zeros_like(mask)
+    exact = {
+        "zero_mask": pipe(**kw, hints=hints([("cn", "hint", "mask")], zero)),
+        "zero_controlnet": pipe(**kw, hints=[{
+            "params": controlnet.random_controlnet(ucfg, seed=4,
+                                                   device="cuda"),
+            "image": cond[0], "soft_injection": True, "cfg_only": True}])}
+    for name, img in exact.items():
+        equal = bool(torch.equal(img, base))
+        emit({"phase": "hints", "check": name, "equals_no_hint": equal})
+        if not equal:
+            failed.append(f"{name}: differs from the no-hint image")
+    del pipe, ms
+    torch.cuda.empty_cache()
+
+    # over gRPC through the engine's hintset: the live ControlNet saved as
+    # a checkpoint, a hint image of another size than the request's
+    manager = serving = channel = None
+    tmp = None
+    try:
+        import tempfile
+
+        tmp = tempfile.mkdtemp(prefix="gyre-smoke-cn-")
+        load.write_safetensors(os.path.join(tmp, "cn.safetensors"),
+                               load.export_controlnet_state(
+                                   models["cn"][1], ucfg))
+        manager, serving, tmp2 = _serve_yaml(
+            "- {id: sd15, default: true, hintset: hs, model: {preset: sd15, "
+            "seed: 0}}\n"
+            f"- {{model_id: smoke-cn, model: {tmp}/cn.safetensors}}\n"
+            "- {hintset_id: hs, controlnet/canny: {aliases: [canny], "
+            "model: '@smoke-cn'}}\n")
+        shutil.rmtree(tmp2, ignore_errors=True)
+        channel, generate = _grpc_generate(serving.grpc_port)
+        hint_np = np.round(_hint_image(384, 640, 5)[0] * 255).astype(
+            np.uint8)
+        params = manager.hint_model("canny", "sd15")["params"]
+        view = manager.dispatch_view("sd15")
+        from gyre_tpu_torch.ops.images import decode_png
+
+        png = encode_png(hint_np)
+        cond_req = rescale(torch.from_numpy(decode_png(png)), 512,
+                           512).numpy()[..., :3]
+        for prio, enum in (("balanced", pb.HINT_BALANCED),
+                           ("prompt", pb.HINT_PRIORITISE_PROMPT),
+                           ("hint", pb.HINT_PRIORITISE_HINT)):
+            req = _generate_request(21)
+            art = req.prompt.add()
+            art.artifact.type = pb.ARTIFACT_HINT_IMAGE
+            art.artifact.hint_image_type = "canny"
+            art.artifact.binary = png
+            art.parameters.hint_priority = enum
+            t0 = time.perf_counter()
+            got = generate(req)
+            wall = time.perf_counter() - t0
+            want = view.pipe(**dict(
+                REQUEST, seeds=[21], output_dtype="uint8", chunk_steps=10,
+                stop_event=threading.Event(), hints=[{
+                    "params": params, "kind": "controlnet",
+                    "image": cond_req, "scale": 1.0,
+                    "soft_injection": prio != "balanced",
+                    "cfg_only": prio == "hint"}]))[0].cpu().numpy()
+            diff = int(np.abs(got.astype(int) - want.astype(int)).max())
+            emit({"phase": "hints", "grpc": prio, "wall_s": wall,
+                  "hint_image": list(hint_np.shape),
+                  "max_diff_to_in_process": diff})
+            if diff > 1:
+                failed.append(f"gRPC {prio}: {diff} levels off the "
+                              "in-process image")
+    finally:
+        if channel is not None:
+            channel.close()
+        if serving is not None:
+            serving.stop(0)
+        if manager is not None:
+            manager.dispatcher.stop()
+        if tmp:
+            shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("hints: " + "; ".join(failed))
+
 
 
 def _generate_request(seed: int, engine_id: str = "sd15"):
@@ -1544,7 +2300,9 @@ def phase_profile(out_dir: str = "out"):
     torch.profiler trace of one call with the kernels, its device time by
     kernel written to ``<out_dir>/profile_b1.txt``, beside the host
     numbers (``_call``) of that call and of one untraced call, its count
-    of device operations, its copy kernels and csrc/'s kernels."""
+    of device operations, its copy kernels and csrc/'s kernels; then the
+    same numbers (without the file) for a request with one ControlNet at
+    the prompt and hint priorities and with the T2I adapter."""
     import os
 
     import torch
@@ -1626,6 +2384,30 @@ def phase_profile(out_dir: str = "out"):
           "top_kernels_ms": [[name[:90], msec, n]
                              for name, (msec, n) in top[:20]]})
 
+    # hinted requests (phase 5d's models and cases): host numbers untraced
+    # and traced beside the card's busy time, to tell what a hint adds on
+    # the host from what it adds on the card
+    _, _, mask, hints = _hint_kit()
+    for name in ("controlnet_prompt", "controlnet_hint", "t2i_balanced"):
+        hkw = dict(kw, hints=hints(HINT_CASES[name][0], mask))
+        _call(pipe, [5], hkw)                                # warm-up
+        untraced = _call(pipe, [5], hkw)[1]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            traced = _call(pipe, [5], hkw)[1]
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        port = {}
+        for e in events:
+            if any(k in e.name for k in PORT_KERNEL_NAMES):
+                slot = port.setdefault(e.name[:90], [0.0, 0])
+                slot[0] += e.time_range.elapsed_us() / 1e3
+                slot[1] += 1
+        emit({"phase": "profile", "case": name, "host_untraced": untraced,
+              "host_traced": traced, "device_busy_s": sum(
+                  e.time_range.elapsed_us() for e in events) / 1e6,
+              "device_ops": len(events), "port_kernels": port})
+
 
 KERNEL_TABLE = [
     ("flash_attention", "gyre_tpu_torch/csrc/flash_attention.cu",
@@ -1660,6 +2442,8 @@ def main() -> int:
     launches = phase_pipeline()
     phase_samplers()
     phase_modes()
+    phase_adapters()
+    phase_hints()
     phase_serve()
     phase_http()
     phase_weights()
@@ -1678,10 +2462,12 @@ def main() -> int:
                    for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
                 "bound_by": max(by, key=by.get)}
 
-    rows, mode_rows = [], []
+    rows, mode_rows, cn_rows = [], [], []
     for name, source, replaces in KERNEL_TABLE:
-        rs = [r for r in kernels[name] if not r.get("modes")]
+        rs = [r for r in kernels[name]
+              if not r.get("modes") and not r.get("controlnet")]
         mode_rs = [r for r in kernels[name] if r.get("modes")]
+        cn_rs = [r for r in kernels[name] if r.get("controlnet")]
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
@@ -1691,7 +2477,10 @@ def main() -> int:
                for k in ("ms", "plain_ms", "bound_ms", "library_ms")}})
         mode_rows.append({"name": name, "shapes": len(mode_rs),
                           **summary(mode_rs)})
+        cn_rows.append({"name": name, "shapes": len(cn_rs),
+                        **summary(cn_rs)})
     emit({"mode_shapes": mode_rows})
+    emit({"controlnet_shapes": cn_rows})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

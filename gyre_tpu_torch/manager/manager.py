@@ -23,15 +23,20 @@ CoalescingDispatcher (manager/scheduler.py, the port's copy of the JAX
 package's): its single thread owns the card and merges compatible
 concurrent requests into one batch.
 
-Not ported, and raising NotImplementedError with the ROADMAP item when an
-engine or request needs them: LoRA/TI adapters (C3), hintsets and hint
-models (C4), the CLIP model for guidance (C6), task engines (D). An
-engine's ``graft:`` names another engine whose UNet its pipeline grafts on
-top of its own (the 9-channel inpainting UNet under SD 1.5, say).
+LoRA/TI adapters fold into a view of an engine (``adapted_pipeline``,
+bounded cache), with a DispatchView of its own so that the dispatcher never
+merges adapted and plain requests. ``hintset_id`` entries name the hint
+models (ControlNets, T2I adapters) an engine's ``hintset:`` offers
+(hints.py, ``hint_model``). An engine's ``graft:`` names another engine
+whose UNet its pipeline grafts on top of its own (the 9-channel inpainting
+UNet under SD 1.5, say). Not ported, and raising NotImplementedError with
+the ROADMAP item when an engine or request needs them: the CLIP model for
+guidance (C6), task engines (D).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import threading
 import time
@@ -45,6 +50,7 @@ from ..models import configs
 from ..models.modelset import ModelSet, random_modelset
 from ..pipeline.unified import UnifiedPipeline
 from . import engines_yaml
+from .hints import HintsetManager
 from .scheduler import CoalescingDispatcher
 
 logger = logging.getLogger(__name__)
@@ -117,6 +123,7 @@ class EngineManager:
                  weight_resolver=None, interleave: int = 2,
                  gather_ms: float = 10.0, watchdog_s: float = 900.0):
         entries = [s for s in engine_specs if isinstance(s, dict)]
+        hintset_entries = [e for e in entries if "hintset_id" in e]
         # model_id entries: the shared model registry "@ref"s resolve
         # through (reference @model_id memoization, gyre/manager.py:
         # 1602-1648 and config/models/*.yaml)
@@ -132,9 +139,16 @@ class EngineManager:
         self.compute_dtype = compute_dtype
         self.batch_max = batch_max
         self._weight_resolver = weight_resolver
+        self.hintsets = HintsetManager(
+            hintset_entries, configs.SD15.unet, compute_dtype=compute_dtype,
+            device=self.device, model_loader=self.load_model_entry)
+        # url artifacts resolve through it (server.serve sets it)
+        self.resources = None
         self._modelsets: dict[str, ModelSet] = {}
         self._pipelines: dict[str, UnifiedPipeline] = {}
         self._views: dict[str, DispatchView] = {}
+        # adapted views (LoRA/TI folded in), oldest first
+        self._adapted: dict[tuple, DispatchView] = {}
         self._probes: dict[tuple, float] = {}
         # per-engine weight provenance for status(): "real" (checkpoint
         # loaded), "random" (random weights: loud, so no engine silently
@@ -304,13 +318,91 @@ class EngineManager:
                         self.pipeline(engine_id))
         return self._views[engine_id]
 
+    def adapted_pipeline(self, engine_id: str, loras=None, tis=None):
+        """The engine's DispatchView, or with adapters a view over its
+        weights with them folded in. loras: [(state_dict, scale,
+        cache_key)], tis: [(state_dict, cache_key)]; a scale is a float or
+        a per-model dict ('*' / 'unet' / 'text_encoder'), and scales that
+        give each model the same weight share a view. Each adapted view has
+        a DispatchView of its own (the dispatcher coalesces by it), kept in
+        a cache of at most 8 beside the base."""
+        from ..pipeline import lora as lora_mod
+
+        if not loras and not tis:
+            return self.dispatch_view(engine_id)
+
+        def skey(s):
+            return tuple(sorted((k, round(v, 4)) for k, v in
+                                lora_mod.model_scales(s).items()))
+
+        key = (engine_id, tuple((ck, skey(s)) for _, s, ck in loras or []),
+               tuple(ck for _, ck in tis or []))
+        cached = self._adapted.get(key)
+        if cached is not None:
+            return cached
+        base = self.pipeline(engine_id)
+        ms = base.ms
+        # the host work (rebuilt, laid out and scaled deltas, TI rows) on
+        # this request's thread, so that the dispatcher is held only for
+        # the uploads and adds
+        deltas = [lora_mod.lora_deltas(state, scale, config=ms.config)
+                  for state, scale, _ in loras or []]
+        embeddings = {}
+        for state, _ in tis or []:
+            embeddings.update(lora_mod.extract_ti_embeddings(state))
+        # the fold is device work: on the dispatcher's thread, which owns
+        # the card (not under _load_lock, which dispatcher jobs may take)
+        return self.dispatcher.submit(
+            lambda: self._adapted.get(key) or self._build_adapted(
+                key, base, engine_id, deltas, embeddings), {},
+            solo=True).result()
+
+    def _build_adapted(self, key, base, engine_id, deltas, embeddings):
+        from ..pipeline import lora as lora_mod
+
+        ms = base.ms
+        unet_p, text_p = ms.unet_params, list(ms.text_params)
+        tokenizer = ms.tokenizer
+        with torch.inference_mode():
+            for d in deltas:
+                unet_p, text_p, n = lora_mod.fold_deltas(unet_p, text_p, d)
+                logger.info("lora applied to %s: %d modules", engine_id, n)
+            if embeddings:
+                text_p, tokenizer = lora_mod.apply_textual_inversions(
+                    dataclasses.replace(ms, text_params=text_p), embeddings)
+        new_ms = dataclasses.replace(
+            ms, unet_params=unet_p, text_params=text_p, tokenizer=tokenizer,
+            id=f"{ms.id}+adapters")
+        view = DispatchView(base.derive(new_ms))
+        if len(self._adapted) >= 8:           # bounded: drop the oldest
+            self._adapted.pop(next(iter(self._adapted)))
+        self._adapted[key] = view
+        return view
+
     @contextmanager
-    def with_engine(self, engine_id: str | None = None):
-        """Borrow an engine for one request: yields its DispatchView.
-        Not a device claim: device work is serialised (and batched) by the
-        dispatcher thread. LoRA/TI adapters are not ported yet (C3):
-        requests carrying them answer UNIMPLEMENTED before they get here."""
-        yield self.dispatch_view(engine_id or self.default_engine_id())
+    def with_engine(self, engine_id: str | None = None, loras=None,
+                    tis=None):
+        """Borrow an engine for one request: yields its DispatchView, with
+        the request's adapters folded in (adapted_pipeline). Not a device
+        claim: device work is serialised (and batched) by the dispatcher
+        thread."""
+        yield self.adapted_pipeline(engine_id or self.default_engine_id(),
+                                    loras, tis)
+
+    def hint_model(self, hint_type: str, engine_id: str | None = None):
+        """The conditioning model ({"params", "kind"}) for a hint type,
+        built for the engine's UNet from the engine's ``hintset:`` (any
+        hintset when that one has none for the type); None, with a warning,
+        when no hintset names the type. (The JAX package gives such a type
+        a random ControlNet, whose zero convs add exactly zero.)"""
+        eid = engine_id or self.default_engine_id()
+        model = self.hintsets.for_type(
+            hint_type, self.modelset(eid).config.unet,
+            hintset=self.spec(eid).params.get("hintset"))
+        if model is None:
+            logger.warning("no hintset provides hint type %r: hint skipped",
+                           hint_type)
+        return model
 
     def load_model_entry(self, ref: str):
         """'@model-id' registry reference or direct path/repo -> (state

@@ -138,6 +138,14 @@ def upsample_nearest_2x(x):
     return x.reshape(b, h * 2, w * 2, c)
 
 
+def avg_pool_2x(x):
+    """2x2 mean over NHWC, stride 2 (an odd last row or column dropped):
+    the T2I adapter's downsampling."""
+    b, h, w, c = x.shape
+    x = x[:, :h // 2 * 2, :w // 2 * 2]
+    return x.reshape(b, h // 2, 2, w // 2, 2, c).sum(dim=(2, 4)) * 0.25
+
+
 # ------------------------------------------------------------ param specs
 # Each model's ``param_specs(cfg)`` builds its params tree with a Spec at
 # every leaf: the leaf's kind and its shape in the port's layout. The same

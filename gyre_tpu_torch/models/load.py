@@ -15,7 +15,9 @@ Tolerances kept from the JAX loader: legacy VAE attention keys
 keys with or without ``text_model.``, ``*.fp16.safetensors`` files.
 Safetensors files are memory-mapped and each leaf goes to the engine's
 device before it is cast, so no host copy of the model is made. The
-loaders of other model kinds wait for their consumers and raise.
+ControlNet loader (and its exporter) walks the ControlNet's spec tree the
+same way; the T2I adapter's is in models/t2i_adapter.py. The loaders of
+other model kinds wait for their consumers and raise.
 """
 
 from __future__ import annotations
@@ -164,8 +166,40 @@ def _not_ported(kind: str, item: str):
         f"(ROADMAP {item})")
 
 
-def load_controlnet_params(*_, **__):
-    _not_ported("ControlNet", "C4")
+def controlnet_keys(path) -> tuple[str, ...]:
+    """A ControlNet leaf's diffusers ControlNetModel key: the UNet's for
+    the twinned down path, mid block and time embedding."""
+    *mod, leaf = path
+    leaf = _LEAF[leaf]
+    if mod[0] == "cond_embed":
+        pre = "controlnet_cond_embedding"
+        if mod[1] == "blocks":            # blocks.{2i} and blocks.{2i + 1}
+            return (f"{pre}.blocks.{2 * mod[2] + (mod[3] == 'conv2')}."
+                    f"{leaf}",)
+        return (f"{pre}.{mod[1]}.{leaf}",)
+    if mod[0] == "zero_convs":
+        return (f"controlnet_down_blocks.{mod[1]}.{leaf}",)
+    if mod[0] == "mid_zero":
+        return (f"controlnet_mid_block.{leaf}",)
+    return unet_keys(path)
+
+
+def load_controlnet_params(state: dict, cfg: configs.UNetConfig,
+                           dtype=torch.bfloat16, device="cuda") -> dict:
+    """diffusers ControlNetModel state dict -> ControlNet params on
+    ``device`` (models/controlnet.py), as strict as the UNet's loader."""
+    from . import controlnet
+
+    return load_tree(controlnet.param_specs(cfg), state, controlnet_keys,
+                     "controlnet", dtype, device)
+
+
+def export_controlnet_state(params: dict, cfg: configs.UNetConfig
+                            ) -> dict[str, torch.Tensor]:
+    """Inverse of load_controlnet_params."""
+    from . import controlnet
+
+    return export_tree(params, controlnet.param_specs(cfg), controlnet_keys)
 
 
 def load_clip_vision_params(*_, **__):

@@ -96,6 +96,15 @@ def _random_tree(specs, gen, dtype, device):
     return map_specs(lambda _, s: _as_spec_dtype(make(s), s), specs)
 
 
+def random_tree(specs, seed: int, dtype, device):
+    """A params tree of ``specs`` with random weights as random_modelset
+    makes them, from its own generator seeded with ``seed``."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    with torch.inference_mode():
+        return _random_tree(specs, gen, dtype, device)
+
+
 def _as_spec_dtype(t, s: L.Spec):
     """A leaf made in the model's dtype; an f32 spec's leaf cast up once,
     here, so it holds exactly the model dtype's value."""
@@ -208,6 +217,37 @@ def _from_jax(specs, jax_tree, name: str, dtype, device):
     if left:
         raise ValueError(f"{name}: JAX params leaves the port does not "
                          f"consume: {['/'.join(map(str, p)) for p in left]}")
+    return out
+
+
+def controlnet_from_jax(params, cfg: configs.UNetConfig, *,
+                       dtype=torch.float32, device="cuda"):
+    """The JAX package's ControlNet params tree (numpy) -> the port's, as
+    strict as from_jax_params."""
+    from . import controlnet
+
+    return _from_jax(controlnet.param_specs(cfg), params, "controlnet",
+                     dtype, torch.device(device))
+
+
+def t2i_adapter_from_jax(params, *, dtype=torch.float32, device="cuda"):
+    """The JAX package's T2I-adapter params tree (numpy; a level's "proj"
+    None where the channels do not change) -> the port's, as strict as
+    from_jax_params."""
+    from . import t2i_adapter
+
+    ds = int(params["downscale"])
+    levels = params["levels"]
+    tree = {"conv_in": params["conv_in"],
+            "levels": [{k: v for k, v in lvl.items() if v is not None}
+                       for lvl in levels]}
+    specs = t2i_adapter.param_specs(
+        tuple(np.shape(lvl["blocks"][0]["conv1"]["w"])[-1]
+              for lvl in levels),
+        cond_channels=np.shape(params["conv_in"]["w"])[2] // (ds * ds),
+        n_res_blocks=len(levels[0]["blocks"]), downscale=ds)
+    out = _from_jax(specs, tree, "t2i_adapter", dtype, torch.device(device))
+    out["downscale"] = ds
     return out
 
 

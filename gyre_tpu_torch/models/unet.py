@@ -7,8 +7,10 @@ kernel K1. Under seamless tiling the convs pad circularly on the tiled
 axes, so the resnets take the plain GroupNorm -> SiLU -> conv path, as in
 the JAX package, and only the attentions run a kernel. Not ported yet, and
 raising when asked for: SD2/SDXL features (linear projections,
-added/class conditioning, scale-shift time conditioning),
-ControlNet/T2I-Adapter residuals and token merging.
+added/class conditioning, scale-shift time conditioning) and token
+merging. ControlNet residuals (``down_residuals``, ``mid_residual``) and
+T2I-adapter features (``adapter_states``) are added as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -201,15 +203,16 @@ def apply(params: Params, cfg: UNetConfig, x, timesteps, context, *,
           tome_ratio: float = 0.0):
     """Predict noise: x [B,H,W,Cin], timesteps [B], context [B,S,D];
     ``tiling`` = (tiling_x, tiling_y) makes the image seamless on those
-    axes. The conditioning arguments of the JAX package's signature are kept;
-    those not ported yet raise."""
+    axes. ``down_residuals`` (one a skip) and ``mid_residual`` are a
+    ControlNet's, added to the skips after the down path and after the mid
+    block's last resnet; ``adapter_states`` (one a level, or None) a T2I
+    adapter's, added after a level's last resnet, before its skip is
+    pushed. The conditioning arguments of the JAX package's signature are
+    kept; those not ported yet raise."""
     _check_config(cfg)
     unported = [name for name, on in (
         ("added_cond", added_cond is not None),
         ("class_labels", class_labels is not None),
-        ("down_residuals", down_residuals is not None),
-        ("mid_residual", mid_residual is not None),
-        ("adapter_states", adapter_states is not None),
         ("tome_ratio", tome_ratio > 0)) if on]
     if unported:
         raise NotImplementedError(
@@ -230,10 +233,17 @@ def apply(params: Params, cfg: UNetConfig, x, timesteps, context, *,
             if blk["attns"]:
                 h = _transformer(blk["attns"][i], h, context,
                                  cfg.num_heads[lvl], groups)
+            if (adapter_states is not None and
+                    i == len(blk["resnets"]) - 1 and
+                    lvl < len(adapter_states) and
+                    adapter_states[lvl] is not None):
+                h = h + adapter_states[lvl].to(dtype)
             skips.append(h)
         if "downsample" in blk:
             h = L.conv2d(blk["downsample"], h, stride=2, padding=1)
             skips.append(h)
+    if down_residuals is not None:
+        skips = [s + r.to(dtype) for s, r in zip(skips, down_residuals)]
 
     mid = params["mid"]
     h = _resnet(mid["res1"], h, temb, groups, tiling)
@@ -241,6 +251,8 @@ def apply(params: Params, cfg: UNetConfig, x, timesteps, context, *,
         h = _transformer(mid["attn"], h, context,
                          cfg.num_heads[cfg.levels - 1], groups)
     h = _resnet(mid["res2"], h, temb, groups, tiling)
+    if mid_residual is not None:
+        h = h + mid_residual.to(dtype)
 
     for i, blk in enumerate(params["up"]):
         lvl = cfg.levels - 1 - i

@@ -12,8 +12,9 @@ go on working.
 The image tensor ops the generation modes need, on [B,H,W,C] tensors:
 ``normalise``, ``gaussian_blur`` (edge-replicated, separable),
 ``to_grayscale`` (depth2img's fallback depth map) and ``match_histograms``
-(the inpaint outmask composite). The other tensor ops of the JAX file
-belong to the adjustments (ROADMAP D1).
+(the inpaint outmask composite), and ``rescale`` (a hint image to the
+request's size, lanczos3 through ops/resize.py). The other tensor ops of
+the JAX file belong to the adjustments (ROADMAP D1).
 """
 
 from __future__ import annotations
@@ -180,3 +181,18 @@ def match_histograms(source, reference, mask=None):
     if mask is not None:
         out = out * mask + source * (1 - mask)
     return out
+
+
+def rescale(img, height: int, width: int):
+    """img [B,H,W,C] to (height, width), lanczos3 (ops/resize.py): scaled
+    to cover the target, then its centre cropped (the JAX package's
+    ``fit="cover"``; its other fits belong to the adjustments, ROADMAP
+    D1)."""
+    from .resize import resize
+
+    _, h, w, _ = img.shape
+    scale = max(height / h, width / w)
+    nh, nw = int(round(h * scale)), int(round(w * scale))
+    out = resize(img, (nh, nw), "lanczos3")
+    top, left = (nh - height) // 2, (nw - width) // 2
+    return out[:, top:top + height, left:left + width]

@@ -1,9 +1,11 @@
 """Image resize that computes what ``jax.image.resize`` computes.
 
 The JAX package resizes with ``jax.image.resize``: the hires fix's latents
-(bicubic, up and down), depth2img's depth map and the outmask composite's
-keep mask (bilinear), and inpaint9's hard mask (nearest). ``F.interpolate``
-computes something else: its cubic kernel has a = -0.75 where JAX's Keys
+(bicubic, up and down), depth2img's depth map, the outmask composite's
+keep mask and a hint's mask (bilinear), inpaint9's hard mask (nearest),
+and a hint image rescaled to the request's size (lanczos3, ops/images.py's
+``rescale``). ``F.interpolate`` has no lanczos kernel and computes the
+others differently: its cubic kernel has a = -0.75 where JAX's Keys
 kernel has a = -0.5, it clamps the taps at the edges where JAX drops the
 taps outside the input and renormalises the rest, and it does not widen
 its kernel when it downscales unless asked to. So each resized axis here
@@ -31,7 +33,18 @@ def _keys_cubic(x):
     return np.where(x >= 2.0, 0.0, out)
 
 
-_KERNELS = {"bilinear": _triangle, "bicubic": _keys_cubic}
+def _lanczos3(x):
+    """Lanczos kernel of radius 3, as jax.image builds it: 1 within 1e-3
+    of 0, sinc(x) sinc(x / 3) to 3, 0 past it (x >= 0)."""
+    with np.errstate(divide="ignore", invalid="ignore"):
+        y = 3.0 * np.sin(np.pi * x) * np.sin(np.pi * x / 3.0)
+        out = np.where(x > 1e-3, y / np.where(x != 0, np.pi ** 2 * x ** 2, 1),
+                       1.0)
+    return np.where(x > 3.0, 0.0, out)
+
+
+_KERNELS = {"bilinear": _triangle, "bicubic": _keys_cubic,
+            "lanczos3": _lanczos3}
 
 
 def weight_matrix(in_size: int, out_size: int, method: str) -> np.ndarray:
@@ -59,8 +72,8 @@ def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
 
 def resize(x, size, method: str):
     """x [B,H,W,C] -> [B,h,w,C] for ``size`` = (h, w), by ``method``:
-    "nearest", "bilinear" or "bicubic". An axis whose size is unchanged
-    is left as it is, as in JAX."""
+    "nearest", "bilinear", "bicubic" or "lanczos3". An axis whose size is
+    unchanged is left as it is, as in JAX."""
     h, w = size
     b, in_h, in_w, c = x.shape
     if method == "nearest":

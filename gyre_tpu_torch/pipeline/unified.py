@@ -29,8 +29,18 @@ against ceil(128 / chunk) chunks until the solver reaches sigma_min. The
 hires fix runs unchunked, as in the JAX package.
 
 Device work runs under ``torch.inference_mode()`` in the helpers below;
-the generator yields outside them. Not ported yet, and raising when asked
-for: hints (ROADMAP C4) and CLIP guidance (C6).
+the generator yields outside them.
+
+Hints (``hints``: ControlNets and T2I adapters, ``_HintStack``) condition
+the engine's UNet: a ControlNet's residuals are added to the skips and the
+mid block, an adapter's features to the down path. Their embeddings and
+features are computed once a request, outside the step loop. A hint's
+priority maps, as in the JAX package, to ``soft_injection`` (logspace
+weights over the residuals or levels) and ``cfg_only`` (the ControlNet
+runs on the guided CFG half only, the unguided half gets zeros). Under the
+hires fix the low-resolution pass gets the hint at its own size, where the
+JAX package fails on the shapes (ROADMAP queue 3). Not ported yet, and
+raising when asked for: style hints and CLIP guidance (ROADMAP C6).
 """
 
 from __future__ import annotations
@@ -42,6 +52,8 @@ import torch
 
 from .. import set_matmul_precision
 from ..models import clip as clip_mod
+from ..models import controlnet as cn_mod
+from ..models import t2i_adapter as t2i_mod
 from ..models import unet as unet_mod
 from ..models import vae as vae_mod
 from ..ops import images as I
@@ -95,6 +107,148 @@ def _tiling_axes(tiling) -> tuple[bool, bool]:
     return bool(tiling), bool(tiling)
 
 
+class _HintStack:
+    """A request's hints, set up once a request: each ControlNet's
+    conditioning embedding, layer weights and masks, and the summed T2I
+    adapter features (those of cfg_only hints apart), at the request's
+    latent size and, made at first use, at any other size the UNet is
+    called at (the hires fix's low-resolution pass: the hint image resized
+    to it, lanczos3). ``wrap(raw_unet)`` is the hinted UNet."""
+
+    def __init__(self, hints, batch: int, guided: bool, ucfg, cdt, device,
+                 lh: int, lw: int):
+        self.ucfg, self.cdt, self.guided = ucfg, cdt, guided
+        self.hints = []
+        for hint in hints:
+            if hint.get("kind") == "style":
+                raise NotImplementedError(
+                    "style hints need the CLIP vision tower, not ported to "
+                    "gyre_tpu_torch yet (ROADMAP C6)")
+            img = hint["image"]
+            if not torch.is_tensor(img):
+                img = torch.from_numpy(np.array(img, dtype=np.float32))
+            img = img.to(device, torch.float32)
+            mask = hint.get("mask")
+            if mask is not None:
+                if not torch.is_tensor(mask):
+                    mask = torch.from_numpy(np.array(mask, dtype=np.float32))
+                mask = mask.to(device, torch.float32)
+                if mask.ndim == 3:
+                    mask = mask[None]
+                mask = mask[:1, :, :, :1]      # [1,H,W,1], every row
+            self.hints.append(dict(
+                hint, image=img.expand(batch, *img.shape[1:]), mask=mask,
+                kind=hint.get("kind", "controlnet"),
+                soft=bool(hint.get("soft_injection")),
+                cfg_only=bool(hint.get("cfg_only")) and guided,
+                scale=float(hint.get("scale", 1.0))))
+        self.size = (lh, lw)
+        self._features = {}
+        self.features(lh, lw)
+
+    @torch.inference_mode()
+    def features(self, lh: int, lw: int):
+        """(controlnets, adapter states, cfg_only adapter states) at latent
+        size (lh, lw)."""
+        if (lh, lw) in self._features:
+            return self._features[(lh, lw)]
+        cdt = self.cdt
+        controlnets, states, states_g = [], None, None
+        for hint in self.hints:
+            img = hint["image"]
+            if (lh, lw) != self.size:
+                img = resize(img, (lh * 8, lw * 8), "lanczos3")
+            mask = hint["mask"]
+            if hint["kind"] == "controlnet":
+                down_rs, mid_r = cn_mod.residual_resolutions(self.ucfg, lh,
+                                                             lw)
+                n_res = len(down_rs)
+                # 13 weights for SD's 12 down residuals + mid: logspace
+                # under soft injection, the mid's always 1
+                lw_np = (np.logspace(-1, 0, n_res + 1) if hint["soft"]
+                         else np.ones(n_res + 1))
+                controlnets.append({
+                    "params": hint["params"], "scale": hint["scale"],
+                    "cfg_only": hint["cfg_only"],
+                    "emb": cn_mod.embed_condition(hint["params"],
+                                                  img.to(cdt)),
+                    "lw": [float(np.float32(v)) for v in lw_np],
+                    "masks": None if mask is None else [
+                        resize(mask, hw, "bilinear")
+                        for hw in down_rs + [mid_r]]})
+                continue
+            feats = t2i_mod.apply(hint["params"], img.to(cdt))
+            # soft injection: logspace level weights; cfg_only drops the
+            # first level to 0.25
+            lw_np = np.ones(len(feats))
+            if hint["soft"]:
+                lw_np = np.logspace(-0.25, 0, len(feats))
+                if hint["cfg_only"]:
+                    lw_np[0] = 0.25
+            feats = [f * (hint["scale"] * float(lw_np[i]))
+                     for i, f in enumerate(feats)]
+            if mask is not None:
+                feats = [f * resize(mask, f.shape[1:3], "bilinear").to(
+                    f.dtype) for f in feats]
+            if hint["cfg_only"]:
+                states_g = feats if states_g is None else [
+                    a + f for a, f in zip(states_g, feats)]
+            else:
+                states = feats if states is None else [
+                    a + f for a, f in zip(states, feats)]
+        self._features[(lh, lw)] = controlnets, states, states_g
+        return self._features[(lh, lw)]
+
+    def wrap(self, raw_unet):
+        """raw_unet(x, t, context, **conditioning) -> the hinted UNet;
+        x's rows are [unguided B; guided B] when the request is guided."""
+        cdt, ucfg = self.cdt, self.ucfg
+
+        def hinted(x, t, context):
+            controlnets, states, states_g = self.features(*x.shape[1:3])
+            down_res = mid_res = None
+            for cn in controlnets:
+                bh = cn["emb"].shape[0]
+                # cfg_only: the ControlNet on the guided half only, zeros
+                # for the unguided half
+                cfg_only = cn["cfg_only"] and x.shape[0] == 2 * bh
+                xin, tin, cin = ((x[bh:], t[bh:], context[bh:]) if cfg_only
+                                 else (x, t, context))
+                ce = cn["emb"].repeat(xin.shape[0] // bh, 1, 1, 1)
+                d, m = cn_mod.apply(cn["params"], ucfg, xin.to(cdt), tin,
+                                    cin.to(cdt), ce,
+                                    conditioning_scale=cn["scale"])
+
+                def post(r, i, n=len(d)):
+                    r = r * cn["lw"][min(i, n)]
+                    if cn["masks"] is not None:
+                        r = r * cn["masks"][i]
+                    if cfg_only:
+                        r = torch.cat([torch.zeros_like(r), r], dim=0)
+                    return r
+
+                d = [post(r, i) for i, r in enumerate(d)]
+                m = post(m, len(d))
+                down_res = d if down_res is None else [
+                    a + b for a, b in zip(down_res, d)]
+                mid_res = m if mid_res is None else mid_res + m
+            ast = None
+            if states is not None:
+                ast = [a.repeat(x.shape[0] // a.shape[0], 1, 1, 1)
+                       for a in states]
+            if states_g is not None:
+                gst = [torch.cat([torch.zeros_like(a), a], dim=0)
+                       if self.guided and x.shape[0] == 2 * a.shape[0]
+                       else a.repeat(x.shape[0] // a.shape[0], 1, 1, 1)
+                       for a in states_g]
+                ast = gst if ast is None else [a + g for a, g in
+                                               zip(ast, gst)]
+            return raw_unet(x, t, context, down_residuals=down_res,
+                            mid_residual=mid_res, adapter_states=ast)
+
+        return hinted
+
+
 class UnifiedPipeline:
     """Bundles one engine's models and serves generation requests.
     ``graft_ms``: a second engine's ModelSet, grafted on top of this one's
@@ -116,6 +270,15 @@ class UnifiedPipeline:
         self.graft_ms = graft_ms
         self._graft_pipe = (UnifiedPipeline(graft_ms, compute_dtype)
                             if graft_ms is not None else None)
+
+    def derive(self, new_modelset) -> "UnifiedPipeline":
+        """A view of this pipeline over other weights of the same
+        architecture (LoRA/TI folded in), sharing everything else."""
+        import copy
+
+        view = copy.copy(self)
+        view.ms = new_modelset
+        return view
 
     @property
     def schedule(self) -> sched.DiffusionSchedule:
@@ -236,19 +399,24 @@ class UnifiedPipeline:
     # ------------------------------------------------------------- denoise
 
     def _denoiser(self, ctx_u, ctx_g, guidance_scale, guided: bool,
-                  tiling=(False, False), wrap_model=None, ms=None):
+                  tiling=(False, False), wrap_model=None, ms=None,
+                  hints: _HintStack | None = None):
         """denoise(x, sigma) -> x0 through ``ms``'s UNet (this engine's by
-        default), its input built by ``wrap_model`` (inpaint9, depth2img)
-        and CFG-guided when ``guided``."""
+        default), conditioned by ``hints``, its input built by
+        ``wrap_model`` (inpaint9, depth2img) and CFG-guided when
+        ``guided``."""
         ms = ms or self.ms
         ucfg = ms.config.unet
         cdt = self.compute_dtype
 
-        def raw_unet(x, t, context):
+        def raw_unet(x, t, context, **cond):
             return unet_mod.apply(ms.unet_params, ucfg, x.to(cdt), t,
-                                  context.to(cdt), tiling=tiling).float()
+                                  context.to(cdt), tiling=tiling,
+                                  **cond).float()
 
-        model_fn = wrap_model(raw_unet) if wrap_model else raw_unet
+        model_fn = raw_unet if hints is None else hints.wrap(raw_unet)
+        if wrap_model:
+            model_fn = wrap_model(model_fn)
         if guided:
             model = denoiser.cfg_model(model_fn, ctx_u, ctx_g, guidance_scale)
         else:
@@ -392,13 +560,10 @@ class UnifiedPipeline:
                   chunk_steps: int = 0,
                   return_latents: bool = False,
                   output_dtype: str | None = None):
-        unported = [f"{name} (ROADMAP {item})" for name, item, asked in (
-            ("hints", "C4", bool(hints)),
-            ("clip_guidance_scale", "C6", clip_guidance_scale > 0))
-            if asked]
-        if unported:
+        if clip_guidance_scale > 0:
             raise NotImplementedError(
-                f"{', '.join(unported)}: not ported to gyre_tpu_torch yet")
+                "clip_guidance_scale (ROADMAP C6): not ported to "
+                "gyre_tpu_torch yet")
         ms = self.ms
         ucfg = ms.config.unet
         factor = 8
@@ -459,6 +624,9 @@ class UnifiedPipeline:
             mode, keys, batch, height, width, strength, init, mask_image,
             depth_map, masked_area_init)
         tiling_xy = _tiling_axes(tiling)
+        hint_stack = (_HintStack(hints, batch, guided, ucfg,
+                                 self.compute_dtype, self.device, lh, lw)
+                      if hints else None)
 
         wrap_model = None
         if mode == "inpaint9":
@@ -466,7 +634,7 @@ class UnifiedPipeline:
         elif mode == "depth2img":
             wrap_model = modes.make_extra_channels_wrapper(extra)
         dn_base = self._denoiser(ctx_u, ctx_g, gs_arg, guided, tiling_xy,
-                                 wrap_model)
+                                 wrap_model, hints=hint_stack)
         if self._graft_pipe is not None:
             gms = self._graft_pipe.ms
             if gms.schedule.prediction_type != "epsilon":

@@ -147,9 +147,8 @@ def parse_args(argv=None):
     res.add_argument("--local_resource", action="append",
                      dest="local_resources",
                      default=environ_list("SD_LOCAL_RESOURCE") or None,
-                     help="prefix=path local resource mappings, for url "
-                          "artifacts (not ported yet, ROADMAP C3: a "
-                          "warning, no effect)")
+                     help="prefix=path local resource mappings: a url "
+                          "artifact file:<prefix>/<file> reads <path>/<file>")
     res.add_argument("--allow_network_resources", action="store_true",
                      default=environ_bool("SD_ALLOW_NETWORK_RESOURCES"))
     res.add_argument("--weight_root", action="append", dest="weight_roots",
@@ -367,22 +366,27 @@ def serve(args, manager, cache=None, log_store=None) -> Serving:
     --grpc_port and --http_port (0: a free port), on localhost unless
     --listen_to_all, both behind --access_token when it is set; the
     servicers are shared, so an Async handle made over gRPC answers over
-    HTTP too. ``cache`` (build_cache by default) holds the /log images,
-    ``log_store`` backs /log."""
+    HTTP too. ``cache`` (build_cache by default) holds the /log images and
+    the artifact cache, ``log_store`` backs /log; url artifacts resolve
+    through a ResourceProvider over --local_resource (and the network with
+    --allow_network_resources)."""
     from .http.router import make_http_server, start_http_server
     from .services.engines import EnginesServiceServicer
     from .services.generate import GenerationServiceServicer
     from .utils.debug_recorder import DebugNullRecorder, DebugRecorder
+    from .utils.resources import ResourceProvider
 
     cache = build_cache(args) if cache is None else cache
-    if args.local_resources:
-        logger.warning("--local_resource is not used yet: url artifacts, "
-                       "which read it, are not ported to gyre_tpu_torch "
-                       "(ROADMAP C3)")
+    local_roots = dict(item.partition("=")[::2]
+                       for item in args.local_resources or [])
+    manager.resources = ResourceProvider(
+        cache, local_roots=local_roots,
+        allow_network=args.allow_network_resources)
     recorder = (DebugRecorder(os.path.join(args.cache_path, "debug"))
                 if args.debug_recording else DebugNullRecorder())
     generation = GenerationServiceServicer(
-        manager, batch_max=manager.batch_max, debug_recorder=recorder)
+        manager, batch_max=manager.batch_max, debug_recorder=recorder,
+        resource_cache=cache)
     engines = EnginesServiceServicer(manager)
     grpc_server, grpc_port = build_server(
         manager, args.grpc_port, batch_max=manager.batch_max,

@@ -8,11 +8,18 @@ cfg_scale, eta, churn, sigma limits / karras rho, clip_layer, the
 schedule's start (img2img strength), the masked-area init, the hires fix
 and tiling runs through the shared dispatcher and streams one Answer per
 image, as PNG or WebP by the request's accept list (``negotiate_mime``),
-then the artifacts it asked to have echoed back. ChainGenerate runs its
-stages with RETURN and PASS routing (a stage's images become the next
-stage's init images), and the Async trio runs a request in the background,
-as the JAX servicer does. Every other request feature (LoRA and embedding
-artifacts, hint images, artifact adjustments, CLIP guidance) answers
+then the artifacts it asked to have echoed back. LoRA and token-embedding
+artifacts (weights, ``named_weights``, ``token_overrides``) fold into an
+adapted view of the engine; their weights come as safetensors (raw bytes,
+or the Safetensors, LoRA and TokenEmbedding messages), from the artifact
+cache (``cache_control`` stores an upload under its ``cache_id``, a
+``cache_id`` artifact fetches it, a miss is FAILED_PRECONDITION) or by
+``url`` through the server's ResourceProvider. Hint images, rescaled to
+the request's size, condition it through the engine's hintset
+(``hint_priority``). ChainGenerate runs its stages with RETURN and PASS
+routing (a stage's images become the next stage's init images), and the
+Async trio runs a request in the background, as the JAX servicer does.
+Every other request feature (artifact adjustments, CLIP guidance) answers
 UNIMPLEMENTED, naming its ROADMAP item; none is ignored silently. The
 safety checker is not ported (ROADMAP C6): as the JAX package without
 trained checker weights, nothing is flagged.
@@ -20,6 +27,7 @@ trained checker weights, nothing is flagged.
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import queue
 import threading
@@ -29,12 +37,14 @@ from concurrent.futures import CancelledError
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from ..generated import generation_pb2 as pb
+from ..generated import tensors_pb2 as tpb
 from ..ops import images as I
 from ..pipeline.samplers import PROTO_SAMPLERS
 from ..utils.timing import STATS
-from .exception_to_grpc import exception_to_grpc
+from .exception_to_grpc import CacheKeyError, exception_to_grpc
 
 logger = logging.getLogger(__name__)
 
@@ -77,11 +87,14 @@ class ExtractedParams:
     hires_oos_fraction: float = 0.25
     tiling: bool | str = False
     echo_artifacts: list = field(default_factory=list)
+    lora_artifacts: list = field(default_factory=list)
+    ti_artifacts: list = field(default_factory=list)
+    hint_images: list = field(default_factory=list)
 
 
-# the ROADMAP item that ports each kind of artifact prompt not served yet
-_ARTIFACT_ITEMS = {pb.ARTIFACT_LORA: "C3", pb.ARTIFACT_TOKEN_EMBEDDING: "C3",
-                   pb.ARTIFACT_HINT_IMAGE: "C4"}
+_HINT_PRIORITIES = {pb.HINT_BALANCED: "balanced",
+                    pb.HINT_PRIORITISE_HINT: "hint",
+                    pb.HINT_PRIORITISE_PROMPT: "prompt"}
 
 
 def _unported(feature: str, item: str | None = None):
@@ -121,6 +134,10 @@ def extract_params(request: pb.Request) -> ExtractedParams:
     pos, neg = [], []
     for prompt in request.prompt:
         which = prompt.WhichOneof("prompt")
+        params = prompt.parameters if prompt.HasField("parameters") else None
+        weight = 1.0
+        if params is not None and params.HasField("weight"):
+            weight = params.weight
         if which == "artifact":
             art = prompt.artifact
             if art.type == pb.ARTIFACT_IMAGE:
@@ -139,18 +156,37 @@ def extract_params(request: pb.Request) -> ExtractedParams:
                     art, pb.ARTIFACT_AFTER_POSTADJUSTMENTS)[..., :1]
             elif art.type == pb.ARTIFACT_DEPTH:
                 p.depth_map = artifact_image(art)[..., :1]
+            elif art.type == pb.ARTIFACT_LORA:
+                # per-model weights: '*' from the weight field, overridden
+                # by named_weights entries
+                weights = {}
+                if params is not None:
+                    if params.HasField("weight"):
+                        weights["*"] = params.weight
+                    for nw in params.named_weights:
+                        weights[nw.name] = nw.weight
+                p.lora_artifacts.append((art, weights or weight))
+            elif art.type == pb.ARTIFACT_TOKEN_EMBEDDING:
+                # token_overrides rename the embedding's tokens: named ones
+                # match original_token, free ones take tokens in order
+                overrides = tuple(
+                    (ov.original_token if ov.HasField("original_token")
+                     else None, ov.token)
+                    for ov in (params.token_overrides if params else ()))
+                p.ti_artifacts.append((art, overrides))
+            elif art.type == pb.ARTIFACT_HINT_IMAGE:
+                priority = "balanced"
+                if params is not None and params.HasField("hint_priority"):
+                    priority = _HINT_PRIORITIES[params.hint_priority]
+                p.hint_images.append((art.hint_image_type,
+                                      artifact_image(art), weight, priority))
             else:
-                _unported(f"{pb.ArtifactType.Name(art.type)} prompts",
-                          _ARTIFACT_ITEMS.get(art.type))
+                _unported(f"{pb.ArtifactType.Name(art.type)} prompts")
             continue
         if which != "text":
             _unported(f"prompt {which or 'without content'}")
-        weight = 1.0
-        if prompt.HasField("parameters"):
-            if prompt.parameters.HasField("weight"):
-                weight = prompt.parameters.weight
-            if prompt.parameters.HasField("clip_layer"):
-                p.clip_layer = -int(prompt.parameters.clip_layer)
+        if params is not None and params.HasField("clip_layer"):
+            p.clip_layer = -int(params.clip_layer)
         if weight < 0:
             neg.append((prompt.text, -weight))
         else:
@@ -220,6 +256,88 @@ def extract_params(request: pb.Request) -> ExtractedParams:
         p.tiling = ("x" if img.tiling_x else "") + \
             ("y" if img.tiling_y else "")
     return p
+
+
+def _proto_tensor(t) -> np.ndarray:
+    """A tensors.Tensor message as a numpy array (bf16 widened to f32)."""
+    dtypes = {tpb.DT_FLOAT32: np.float32, tpb.DT_FLOAT16: np.float16,
+              tpb.DT_FLOAT64: np.float64, tpb.DT_INT32: np.int32,
+              tpb.DT_INT64: np.int64, tpb.DT_UINT8: np.uint8}
+    if t.dtype == tpb.DT_BFLOAT16:
+        raw = np.frombuffer(t.data, dtype=np.uint16).astype(np.uint32) << 16
+        arr = raw.view(np.float32)
+    else:
+        arr = np.frombuffer(t.data, dtype=dtypes.get(t.dtype, np.float32))
+    return arr.reshape(list(t.shape))
+
+
+def _proto_safetensors(st) -> dict:
+    return {e.key: _proto_tensor(e.tensor) for e in st.tensors}
+
+
+def _safetensors_from_bytes(data: bytes) -> dict:
+    """A safetensors file's bytes -> {name: CPU tensor}."""
+    from safetensors.torch import load
+
+    return load(bytes(data))
+
+
+def _artifact_safetensors(art) -> dict | None:
+    """A weight artifact's state dict: raw safetensors bytes in
+    ``binary``, or the Safetensors, LoRA and TokenEmbedding messages;
+    None (logged) where ``binary`` does not parse."""
+    which = art.WhichOneof("data")
+    if which == "safetensors":
+        return _proto_safetensors(art.safetensors)
+    if which == "lora":
+        return _proto_safetensors(art.lora.lora)
+    if which == "token_embedding":
+        return {art.token_embedding.text:
+                _proto_tensor(art.token_embedding.tensor)}
+    if which == "binary" and art.binary:
+        try:
+            return _safetensors_from_bytes(art.binary)
+        except Exception:  # noqa: BLE001 - logged, the artifact is skipped
+            logger.warning("could not parse weight artifact")
+    return None
+
+
+def state_digest(state: dict) -> str:
+    """A digest of a state dict's names, dtypes, shapes and bytes: the
+    cache key of the adapter it holds, one for a content whether its
+    values are numpy arrays or tensors (the transports give either)."""
+    h = hashlib.blake2b(digest_size=16)
+    for key in sorted(state):
+        v = state[key]
+        if hasattr(v, "detach"):
+            v = v.detach().cpu().contiguous()
+            dtype = str(v.dtype).removeprefix("torch.")
+            data = v.view(-1).view(torch.uint8).numpy().tobytes()
+        else:
+            v = np.asarray(v)
+            dtype, data = str(v.dtype), v.tobytes()     # C order
+        h.update(f"{key}|{dtype}|{tuple(v.shape)}|".encode())
+        h.update(data)
+    return h.hexdigest()
+
+
+def rename_embeddings(state: dict, overrides) -> dict:
+    """A TI state's embeddings under the tokens of ``overrides``
+    ((original token or None, token) pairs): a named override renames its
+    original token, free ones rename the remaining tokens in order."""
+    from ..pipeline.lora import extract_ti_embeddings
+
+    named = {orig: tok for orig, tok in overrides if orig is not None}
+    free = [tok for orig, tok in overrides if orig is None]
+    renamed = {}
+    for key, tensor in extract_ti_embeddings(state).items():
+        if key in named:
+            renamed[named[key]] = tensor
+        elif free:
+            renamed[free.pop(0)] = tensor
+        else:
+            renamed[key] = tensor
+    return renamed
 
 
 def _rows(image, n: int):
@@ -294,12 +412,83 @@ class AsyncContext:
 
 
 class GenerationServiceServicer:
-    def __init__(self, manager, batch_max: int = 4, debug_recorder=None):
+    def __init__(self, manager, batch_max: int = 4, debug_recorder=None,
+                 resource_cache=None):
         self.manager = manager
         self.batch_max = batch_max
         self.debug_recorder = debug_recorder
+        self.resource_cache = resource_cache
         self._async: dict[str, AsyncContext] = {}
         self._async_lock = threading.Lock()
+
+    def _artifact_state(self, art) -> dict | None:
+        """A weight artifact's state dict, through the artifact cache: an
+        upload with ``cache_control.cache_id`` is stored under it for
+        ``max_age`` seconds (1 h when unset), and an artifact whose data
+        is a ``cache_id`` fetches it (a miss raises CacheKeyError:
+        FAILED_PRECONDITION, re-upload). A ``url`` artifact is fetched
+        through the manager's ResourceProvider."""
+        which = art.WhichOneof("data")
+        if which == "cache_id":
+            state = None if self.resource_cache is None else \
+                self.resource_cache.get("generation:" + art.cache_id)
+            if state is None:
+                raise CacheKeyError(art.cache_id)
+            return state
+        if which == "url":
+            provider = getattr(self.manager, "resources", None)
+            if provider is None:
+                raise ValueError(
+                    "url artifacts need a resource provider (server "
+                    "--local_resource / --allow_network_resources)")
+            rtype = "lora" if art.type == pb.ARTIFACT_LORA else "embedding"
+            state = _safetensors_from_bytes(
+                provider.fetch(art.url, rtype=rtype, fmt="safetensors"))
+        else:
+            state = _artifact_safetensors(art)
+        if (state and self.resource_cache is not None and
+                art.HasField("cache_control") and
+                art.cache_control.cache_id):
+            self.resource_cache.set(
+                "generation:" + art.cache_control.cache_id, state,
+                ttl=float(art.cache_control.max_age or 3600))
+        return state
+
+    def _adapters(self, p: ExtractedParams):
+        """(loras, tis) of a request for EngineManager.adapted_pipeline,
+        each keyed by a digest of its content."""
+        loras = []
+        for art, weight in p.lora_artifacts:
+            state = self._artifact_state(art)
+            if state:
+                loras.append((state, weight, state_digest(state)))
+        tis = []
+        for art, overrides in p.ti_artifacts:
+            state = self._artifact_state(art)
+            if state:
+                if overrides:
+                    state = rename_embeddings(state, overrides)
+                tis.append((state, state_digest(state)))
+        return loras, tis
+
+    def _hints(self, p: ExtractedParams, engine_id: str) -> list:
+        """The request's hints for UnifiedPipeline: each hint image
+        rescaled to the request's size (lanczos3, cover) and conditioned
+        through the engine's hint model for its type (a type no hintset
+        names is skipped)."""
+        hints = []
+        for hint_type, img, weight, priority in p.hint_images:
+            model = self.manager.hint_model(hint_type, engine_id)
+            if model is None:
+                continue
+            if img.shape[1:3] != (p.height, p.width):
+                img = I.rescale(torch.from_numpy(np.ascontiguousarray(img)),
+                                p.height, p.width).numpy()
+            hints.append({"params": model["params"], "kind": model["kind"],
+                          "image": img[..., :3], "scale": weight,
+                          "soft_injection": priority != "balanced",
+                          "cfg_only": priority == "hint"})
+        return hints
 
     def _run_request(self, request: pb.Request, stop_event=None):
         """Yield (image uint8 [H,W,3], seed, index, metadata) for each
@@ -324,7 +513,10 @@ class GenerationServiceServicer:
                 "engine": engine_id, "sampler": p.sampler, "steps": p.steps,
                 "cfg_scale": p.guidance_scale, "height": p.height,
                 "width": p.width}
-        with self.manager.with_engine(engine_id) as pipe:
+        loras, tis = self._adapters(p)
+        hints = self._hints(p, engine_id)
+        with self.manager.with_engine(engine_id, loras=loras,
+                                      tis=tis) as pipe:
             index = 0
             for i in range(0, len(seeds), self.batch_max):
                 if stop_event is not None and stop_event.is_set():
@@ -349,6 +541,7 @@ class GenerationServiceServicer:
                     masked_area_init=p.masked_area_init, tiling=p.tiling,
                     hires_fix=p.hires_fix,
                     hires_oos_fraction=p.hires_oos_fraction,
+                    hints=hints or None,
                     output_dtype="uint8", stop_event=stop_event,
                     chunk_steps=10 if stop_event is not None else 0)
                 try:

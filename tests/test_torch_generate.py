@@ -376,14 +376,32 @@ def test_mode_fields_reach_the_pipeline(port, monkeypatch):
     ("ARTIFACT_TOKEN_EMBEDDING", "C3"), ("adjusted", "D1"),
     ("ARTIFACT_LORA", "C3"), ("ARTIFACT_HINT_IMAGE", "C4")])
 def test_artifact_prompts_name_their_item(kind, item):
-    req = _request(tpb)
-    if kind == "adjusted":
-        prompt = _artifact(req, tpb.ARTIFACT_IMAGE, _png(), init=True)
-        prompt.artifact.adjustments.add().invert.SetInParent()
-    else:
-        req.prompt.add().artifact.type = getattr(tpb, kind)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tgen.extract_params(req)
+    """An artifact prompt the port does not serve raises naming its
+    ROADMAP item; those of the items ported since (LoRA and embedding
+    artifacts, C3; hint images, C4) are extracted as the JAX servicer
+    extracts them."""
+    reqs = []
+    for pb in (tpb, jpb):
+        req = _request(pb)
+        if kind == "adjusted":
+            prompt = _artifact(req, pb.ARTIFACT_IMAGE, _png(), init=True)
+            prompt.artifact.adjustments.add().invert.SetInParent()
+        else:
+            prompt = _artifact(req, getattr(pb, kind), _png())
+            prompt.parameters.weight = 0.5
+        reqs.append(req)
+    if item == "D1":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            tgen.extract_params(reqs[0])
+        return
+    got, want = tgen.extract_params(reqs[0]), jgen.extract_params(reqs[1])
+    for name in ("lora_artifacts", "ti_artifacts", "hint_images"):
+        assert len(getattr(got, name)) == len(getattr(want, name))
+    if item == "C4":
+        (t, img, w, prio), = got.hint_images
+        (jt, jimg, jw, jprio), = want.hint_images
+        assert (t, w, prio) == (jt, jw, jprio)
+        np.testing.assert_array_equal(img, jimg)
 
 
 def test_webp_without_pillow_is_unimplemented(port, monkeypatch):

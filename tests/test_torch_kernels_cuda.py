@@ -15,7 +15,8 @@ main-path sizes: K1 at T >= 1024 for every SD1.5 head dim and on strided
 [B,T,H,D] views, K2b's split-K (M <= 512) and a ragged C = 960, K2a's
 cluster launch at path shapes of batch 1 and 8, ragged, with vectors that
 straddle two groups and under cancellation; both at the hires fix's
-ragged UNet levels (9, 18, 36) and on a non-square canvas. Bounds as in chip_smoke.py:
+ragged UNet levels (9, 18, 36), on a non-square canvas and at the
+ControlNet's batch-1 shapes (one CFG row). Bounds as in chip_smoke.py:
 2e-2 of max |plain| in bf16 (compounded bf16 rounding, ~5x margin), 1e-3
 for K2a's f32 statistics.
 """
@@ -272,3 +273,42 @@ def test_fused_conv_rejects(gen, bad):
         bias = ones.bfloat16()
     with pytest.raises(ValueError):
         FC.gn_affine(x, scale, bias, 4, 1e-6)
+
+
+# the ControlNet's down path at one row (hint priority "hint" runs it on
+# the guided CFG half only, at batch 1): each level's GN -> SiLU -> conv3x3
+# pairs and its self- and cross-attention (8 heads; 77 context tokens)
+CONTROLNET_B1_LEVELS = [
+    # (H=W, [(C, Co), ...], T, head dim)
+    (64, [(320, 320)], 4096, 40),
+    (32, [(320, 640), (640, 640)], 1024, 80),
+    (16, [(640, 1280), (1280, 1280)], 256, 160),
+    (8, [(1280, 1280)], 64, 160),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,pairs,t,d", CONTROLNET_B1_LEVELS)
+def test_kernels_at_controlnet_batch1_shapes(gen, hw, pairs, t, d):
+    """K2a, K2b and K1 at the ControlNet's batch-1 shapes (B = 1, where
+    the UNet's shapes have B = 2) against their plain versions."""
+    for c, co in pairs:
+        x = (torch.randn((1, hw, hw, c), generator=gen, device="cuda") +
+             torch.randn((c,), generator=gen, device="cuda")).to(
+                 torch.bfloat16)
+        gs = 1 + 0.1 * _randn(gen, c, dtype=torch.float32)
+        gb = 0.1 * _randn(gen, c, dtype=torch.float32)
+        wt = _randn(gen, 3, 3, c, co) * (9 * c) ** -0.5
+        cb = 0.1 * _randn(gen, co, dtype=torch.float32)
+        a, bb = FC.gn_affine(x, gs, gb, 32, 1e-5)
+        a_ref, b_ref = FC.gn_affine_plain(x, gs, gb, 32, 1e-5)
+        assert _rel(a, a_ref) <= F32_STATS_BOUND
+        assert _rel(bb, b_ref) <= F32_STATS_BOUND
+        assert _rel(FC.affine_silu_conv3x3(x, a_ref, b_ref, wt, cb),
+                    FC.affine_silu_conv3x3_plain(x, a_ref, b_ref, wt, cb)
+                    ) <= BF16_BOUND
+    for tk in (t, 77):
+        q = _btd(gen, 1, t, 8, d)
+        k, v = _btd(gen, 1, tk, 8, d), _btd(gen, 1, tk, 8, d)
+        assert _rel(A.attention(q, k, v), _attention_ref(q, k, v)) <= \
+            BF16_BOUND

@@ -119,7 +119,20 @@ def test_noise_is_per_seed():
     ({"clip_guidance_scale": 0.5}, "C6"),
 ])
 def test_unported_options_raise(pipes, kwargs, match):
+    """An option not ported yet raises naming its ROADMAP item. Hints (C4)
+    are ported since: a ControlNet as random_controlnet makes one (zero
+    convs zero) gives the image without it in every bit, and only a style
+    hint raises, naming C6 (the CLIP vision tower)."""
+    from gyre_tpu_torch.models import controlnet as tcn
+
     _, tpipe = pipes
+    if match == "C4":
+        (hint,) = kwargs["hints"]
+        hint = dict(hint, params=tcn.random_controlnet(
+            CFG.unet, dtype=torch.float32, device="cpu"))
+        assert torch.equal(tpipe(**dict(REQUEST, hints=[hint])),
+                           tpipe(**REQUEST))
+        kwargs, match = {"hints": [dict(hint, kind="style")]}, "C6"
     with pytest.raises(NotImplementedError, match=match):
         tpipe(**dict(REQUEST, **kwargs))
 
