@@ -25,7 +25,11 @@ Phases, each printing one JSON object per line:
                on a "mode_shapes" line apart from the kernels line; and
                at every shape the ControlNet runs at one row (hint
                priority "hint": the guided CFG half alone) that no other
-               row has, summed on a "controlnet_shapes" line
+               row has, summed on a "controlnet_shapes" line; and at
+               every shape of the sd2 and sdxl phases' model calls that
+               no other row has (walked from the configs' spec trees,
+               _c5_calls: K1 at d = 64, the refiner's 384..3072
+               channels), summed on a "c5_shapes" line
   4. pipeline  UnifiedPipeline on full-width SD1.5 (random weights from a
                seed): 512x512, 20 steps k_dpmpp_2m, CFG 7.5 (parallel),
                bf16, chunk_steps=10 with a stop_event, uint8 on the device.
@@ -90,6 +94,28 @@ Phases, each printing one JSON object per line:
                the ControlNet saved as a checkpoint: a hint image of
                384x640 (rescaled, lanczos3) at each priority over gRPC,
                within 1 level of the in-process image
+  5e. sd2      an EngineManager engine on the sd21 preset (OpenCLIP-H,
+               linear projections, v-prediction; random, seed 0, bf16):
+               768x768, 20 steps k_dpmpp_2m, CFG 7.5, batch 1,
+               chunk_steps=10; then img2img of its image at strength 0.6;
+               each with its UNet calls, encodes and decodes counted and
+               its launches equal to those derived from the config (K1 32,
+               K2a/K2b 44 a UNet call, a decode 1 / 28, an encode 1 / 20),
+               finite latents and float image, a non-constant image of
+               768x768; then a Generate over gRPC with no size, answering
+               768x768 (the engine's natural size)
+  5f. sdxl     SDXL base and refiner engines (presets sdxl and
+               sdxl-refiner, random, seed 0, bf16) in one EngineManager:
+               the base at 1024x1024 as in 5e (K1 140, K2a/K2b 34 a UNet
+               call), again with only its size time ids changed (the
+               image must change: the pooled text and time ids reach the
+               UNet), the refiner's img2img of its image at strength 0.34
+               (K1 88, K2a/K2b 44 a UNet call, plus an encode), each
+               checked as in 5e; a ChainGenerate base -> refiner (start
+               0.34) -> RETURN over gRPC, one 1024x1024 image, its
+               launches those of the two stages; the load seconds, each
+               model's weight bytes, the phase's peak memory and
+               suggest_max_batch at 1024x1024; both engines freed after
   6. serve     EngineManager + the coalescing dispatcher under concurrent
                requests, then two Generate calls over gRPC
   7. http      the server as main builds it (server.serve: the gRPC
@@ -120,14 +146,19 @@ Phases, each printing one JSON object per line:
                the in-memory ModelSet (within 1 uint8 level; launches
                641 / 908 / 908), one Generate over gRPC, suggest_max_batch
 
-Before the last line it prints the kernels table as one JSON object; the
-last line is {"ok": true, "device": {...}}. Any failed check raises and the
-script exits non-zero; without a CUDA device it exits non-zero at once.
+After each phase from 5 on it prints what the phase left allocated on the
+card. At the end it prints the sums of the mode, ControlNet and C5 rows,
+the "c5_paths" line (each sd2/sdxl request's launches and the sums over
+them of phase 3's kernel, plain, library and bound times), then, before
+the last line, the kernels table as one JSON object; the last line is
+{"ok": true, "device": {...}}. Any failed check raises and the script exits
+non-zero; without a CUDA device it exits non-zero at once.
 """
 
 from __future__ import annotations
 
 import functools
+import gc
 import importlib.metadata
 import json
 import subprocess
@@ -381,6 +412,177 @@ def _controlnet_shapes():
                         seen_attn.add(dims)
                         attns.append((f"cn_b{b}_{kind}_{hw * hw}", *dims))
     return attns, convs
+# ------------------------------------------------- model calls by config
+
+
+def _unet_call_shapes(cfg, size: int, b: int = 2):
+    """(K1 launches, K2 launches) of one UNet call at latent size
+    ``size``², walked from the port's spec tree of ``cfg``: one entry a
+    launch, K1 as (B, H, Tq, Tk, d), K2a/K2b as (B, H=W, C, Co, eps). A
+    transformer block is a self and a cross (77 tokens) attention, a
+    resnet its two fused convs."""
+    from gyre_tpu_torch.models import unet
+
+    specs = unet.param_specs(cfg)
+    attns, convs = [], []
+
+    def level(resnets, transformers, hw, heads):
+        for i, res in enumerate(resnets):
+            _, _, c, co = res["conv1"]["w"].shape
+            convs.extend([(b, hw, c, co, 1e-5), (b, hw, co, co, 1e-5)])
+            if transformers:
+                tr = transformers[i]
+                d = tr["proj_in"]["w"].shape[0] // heads
+                for _ in tr["blocks"]:
+                    attns.extend([(b, heads, hw * hw, hw * hw, d),
+                                  (b, heads, hw * hw, 77, d)])
+
+    last = cfg.levels - 1
+    for lvl, blk in enumerate(specs["down"]):
+        level(blk["resnets"], blk["attns"], size >> lvl, cfg.num_heads[lvl])
+    mid = specs["mid"]
+    level([mid["res1"]], [mid["attn"]] if "attn" in mid else [],
+          size >> last, cfg.num_heads[last])
+    level([mid["res2"]], [], size >> last, cfg.num_heads[last])
+    for i, blk in enumerate(specs["up"]):
+        level(blk["resnets"], blk["attns"], size >> (last - i),
+              cfg.num_heads[last - i])
+    return attns, convs
+
+
+def _vae_call_shapes(cfg, size: int, part: str):
+    """(K1 launches, K2 launches) of one VAE call at batch 1, as
+    _unet_call_shapes: ``part`` "decoder" at latent size ``size``² or
+    "encoder" at image size ``size``²; the mid block's attention is one
+    head of d = C."""
+    from gyre_tpu_torch.models import vae
+
+    specs = vae.param_specs(cfg)[part]
+    n = len(cfg.block_out_channels)
+    attns, convs = [], []
+
+    def resnets(blocks, hw):
+        for res in blocks:
+            _, _, c, co = res["conv1"]["w"].shape
+            convs.extend([(1, hw, c, co, 1e-6), (1, hw, co, co, 1e-6)])
+
+    def mid(hw):
+        c = specs["mid"]["attn"]["q"]["w"].shape[0]
+        resnets([specs["mid"]["res1"], specs["mid"]["res2"]], hw)
+        attns.append((1, 1, hw * hw, hw * hw, c))
+
+    if part == "encoder":
+        for lvl, blk in enumerate(specs["down"]):
+            resnets(blk["resnets"], size >> lvl)
+        mid(size >> (n - 1))
+    else:
+        mid(size)
+        for i, blk in enumerate(specs["up"]):
+            resnets(blk["resnets"], size << i)
+    return attns, convs
+
+
+def _launches(parts):
+    """Expected launches of a request of _c5_paths: parts [(count,
+    _c5_calls name)]."""
+    calls = _c5_calls()
+    k1 = sum(n * len(calls[c][0]) for n, c in parts)
+    k2 = sum(n * len(calls[c][1]) for n, c in parts)
+    return {"flash_attention": k1, "gn_stats": k2, "gn_silu_conv3x3": k2}
+
+
+def _c5_calls():
+    """The model calls of the sd2 and sdxl phases, by name: (K1, K2)
+    shapes of one call. SD2 at 768² (96 latents) and its img2img's
+    encode; SDXL base and refiner at 1024² (128 latents), the refiner's
+    img2img encode; parallel CFG: the UNets at 2 rows."""
+    from gyre_tpu_torch.models import configs
+
+    sd2, xl, ref = (configs.PRESETS[p]
+                    for p in ("sd21", "sdxl", "sdxl-refiner"))
+    return {
+        "sd2_unet": _unet_call_shapes(sd2.unet, 96),
+        "sd2_decode": _vae_call_shapes(sd2.vae, 96, "decoder"),
+        "sd2_encode": _vae_call_shapes(sd2.vae, 768, "encoder"),
+        "sdxl_unet": _unet_call_shapes(xl.unet, 128),
+        "refiner_unet": _unet_call_shapes(ref.unet, 128),
+        "sdxl_decode": _vae_call_shapes(xl.vae, 128, "decoder"),
+        "sdxl_encode": _vae_call_shapes(xl.vae, 1024, "encoder"),
+    }
+
+
+def _strength_steps(strength: float) -> int:
+    """UNet calls of a k_dpmpp_2m img2img at ``strength`` (one a step of
+    the truncated ramp)."""
+    from gyre_tpu_torch.pipeline import schedule as sched
+
+    return len(sched.build_sigmas(sched.scaled_linear_schedule(), STEPS,
+                                  strength=strength)) - 1
+
+
+def _c5_paths():
+    """The requests of the sd2 and sdxl phases as model calls: {name:
+    [(count, _c5_calls name)]}; an img2img at strength 0.6 runs the last
+    12 steps of the ramp, at 0.34 the last 7."""
+    return {"sd2_768": [(STEPS, "sd2_unet"), (1, "sd2_decode")],
+            "sd2_img2img_768": [(_strength_steps(0.6), "sd2_unet"),
+                                (1, "sd2_encode"), (1, "sd2_decode")],
+            "sdxl_1024": [(STEPS, "sdxl_unet"), (1, "sdxl_decode")],
+            "refiner_img2img_1024": [(_strength_steps(0.34), "refiner_unet"),
+                                     (1, "sdxl_encode"),
+                                     (1, "sdxl_decode")]}
+
+
+def _path_sums(kernels, parts):
+    """Per kernel, a request's launches and the sums over its launches of
+    phase 3's median times (kernel, plain, library) and bounds, each
+    launch priced at its shape's row, whichever set the row is in."""
+    calls = _c5_calls()
+    rows = {(name, tuple(r["dims"])): r for name, rs in kernels.items()
+            for r in rs}
+    out = []
+    for name, _, _ in KERNEL_TABLE:
+        sums = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"),
+                             0.0)
+        launches = 0
+        for count, call in parts:
+            attns, convs = calls[call]
+            for dims in attns if name == "flash_attention" else convs:
+                if name != "flash_attention":      # (B, H=W, C, Co, eps)
+                    b, hw, c, co, _ = dims
+                    dims = (b, hw, hw, c) + ((co,) if name ==
+                                              "gn_silu_conv3x3" else ())
+                r = rows[(name, dims)]
+                launches += count
+                for k in sums:
+                    sums[k] += count * r[k]
+        out.append({"name": name, "launches": launches, **sums})
+    return out
+
+
+def _c5_shapes():
+    """(K1 rows, K2a + K2b rows) at every distinct shape of _c5_calls that
+    phase 3's other rows lack: K1 rows (name, B, H, Tq, Tk, d), conv rows
+    (name, B, H=W, C, Co, eps)."""
+    cn_attn, cn_conv = _controlnet_shapes()
+    seen_attn = {r[1:6] for r in ATTN_SHAPES + MODE_ATTN_SHAPES + cn_attn}
+    seen_conv = {r[1:6] for r in CONV_SHAPES + MODE_CONV_SHAPES + cn_conv}
+    attns, convs = [], []
+    for call, (a, c) in _c5_calls().items():
+        model = call.split("_")[0]
+        for dims in a:
+            if dims not in seen_attn:
+                seen_attn.add(dims)
+                kind = "cross" if dims[3] == 77 else "self"
+                attns.append((f"{model}_{kind}_{dims[2]}_d{dims[4]}", *dims))
+        for dims in c:
+            if dims not in seen_conv:
+                seen_conv.add(dims)
+                convs.append((f"{call}_{dims[1]}_{dims[2]}_{dims[3]}",
+                              *dims))
+    return attns, convs
+
+
 # K2a alone at two shapes of a batch-8 call, where its launch differs from
 # batch 1's: (name, B, H=W, C, eps, launches per batch-8 call). The UNet
 # runs 16 rows (8 images x 2 CFG rows), the VAE 8.
@@ -561,6 +763,13 @@ def phase_kernels():
         attn_row(*shape, 0, controlnet=True)
     for shape in cn_conv:
         conv_row(*shape, 0, controlnet=True)
+    # the sd2 and sdxl phases' shapes (K1 at d = 64 among them), tagged
+    # apart
+    c5_attn, c5_conv = _c5_shapes()
+    for shape in c5_attn:
+        attn_row(*shape, 0, c5=True)
+    for shape in c5_conv:
+        conv_row(*shape, 0, c5=True)
     for name, b, hw, c, eps, launches in GN_BATCH8_SHAPES:
         # not in a batch-1 call: no launches of its per-call sums
         record_stats(name, b, hw, c, eps, 0,
@@ -841,6 +1050,93 @@ def phase_samplers():
         torch.cuda.empty_cache()
 
 
+class _Counted:
+    """Counts UNet calls (and whether one ran tiled), VAE encodes and
+    decodes while active, the models' functions wrapped, and records
+    whether each decode's latents and float image are finite and the image
+    not constant. ``run`` resets the kernels' launch counts just before a
+    call and reads them just after."""
+
+    def __enter__(self):
+        from gyre_tpu_torch.models import unet as unet_mod
+        from gyre_tpu_torch.models import vae as vae_mod
+
+        self.mods = unet_mod, vae_mod
+        self.saved = unet_mod.apply, vae_mod.encode, vae_mod.decode
+        apply, encode, decode = self.saved
+        self.images = []
+        self.reset()
+
+        def counted_apply(*args, **kw):
+            self.counts["unet"] += 1
+            self.counts["tiling"] |= any(kw.get("tiling", (False, False)))
+            return apply(*args, **kw)
+
+        def counted_encode(*args, **kw):
+            self.counts["encode"] += 1
+            return encode(*args, **kw)
+
+        def counted_decode(params, cfg, z):
+            self.counts["decode"] += 1
+            img = decode(params, cfg, z)
+            self.images.append({
+                "latents_finite": bool(z.isfinite().all()),
+                "image_finite": bool(img.isfinite().all()),
+                "image_constant": float(img.max()) == float(img.min())})
+            return img
+
+        unet_mod.apply, vae_mod.encode, vae_mod.decode = \
+            counted_apply, counted_encode, counted_decode
+        return self
+
+    def __exit__(self, *exc):
+        unet_mod, vae_mod = self.mods
+        unet_mod.apply, vae_mod.encode, vae_mod.decode = self.saved
+
+    def reset(self):
+        """Zero the counts and the decodes' records."""
+        self.counts = {"unet": 0, "tiling": False, "encode": 0, "decode": 0}
+        self.images.clear()
+
+    def run(self, phase, case, fn, expect, calls, size, failed):
+        """fn() once: its line (wall, counts, launches against ``expect``
+        and ``calls`` = (UNet calls, encodes, decodes), the decodes'
+        checks) emitted; failed checks appended to ``failed``. Returns
+        fn's result."""
+        import torch
+
+        from gyre_tpu_torch import _build
+
+        self.reset()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.launches)
+        seen = (self.counts["unet"], self.counts["encode"],
+                self.counts["decode"])
+        line = {"phase": phase, "case": case, "wall_s": wall,
+                "unet_calls": seen[0], "encodes": seen[1],
+                "decodes": seen[2], "launches": launches,
+                "expected_launches": expect, "decoded": self.images}
+        if out is not None and torch.is_tensor(out):
+            line["image_shape"] = list(out.shape)
+        emit(line)
+        failed.extend(f"{phase} {case}: {what}" for what, bad in (
+            (f"calls {seen} != {calls}", seen != tuple(calls)),
+            (f"launches {launches} != {expect}", launches != expect),
+            ("latents or image not finite", not all(
+                d["latents_finite"] and d["image_finite"]
+                for d in self.images)),
+            ("constant image", any(d["image_constant"]
+                                   for d in self.images)),
+            (f"image {line.get('image_shape')}",
+             out is not None and line.get("image_shape") !=
+             [1, size, size, 3])) if bad)
+        return out
+
+
 # the modes phase: for each case, its predicted launches (K1, K2a = K2b)
 # from the launch rule of the samplers phase (a UNet call 32 / 44, a VAE
 # decode 1 / 28) plus 1 / 20 a VAE encode (4 levels x 2 resnets x 2
@@ -908,44 +1204,23 @@ def phase_modes():
 
     from gyre_tpu_torch import _build
     from gyre_tpu_torch.models import configs
-    from gyre_tpu_torch.models import unet as unet_mod
-    from gyre_tpu_torch.models import vae as vae_mod
     from gyre_tpu_torch.models.modelset import random_modelset
     from gyre_tpu_torch.pipeline.unified import UnifiedPipeline
 
     init_np, mask_np = _mode_inputs()
     init = torch.from_numpy(init_np).cuda()
     mask = torch.from_numpy(mask_np).cuda()
-    counts = {"unet": 0, "tiling": False, "encode": 0, "decode": 0}
-    decoded = []
-    apply, encode, decode = unet_mod.apply, vae_mod.encode, vae_mod.decode
-
-    def counted_apply(*args, **kw):
-        counts["unet"] += 1
-        counts["tiling"] |= any(kw.get("tiling", (False, False)))
-        return apply(*args, **kw)
-
-    def counted_encode(*args, **kw):
-        counts["encode"] += 1
-        return encode(*args, **kw)
-
-    def counted_decode(params, cfg, z):
-        counts["decode"] += 1
-        decoded.append(bool(z.isfinite().all()))
-        return decode(params, cfg, z)
-
     failed = []
 
     def run(name, fn, chunked=None):
-        counts.update(unet=0, tiling=False, encode=0, decode=0)
-        decoded.clear()
+        counted.reset()
         _build.reset_launches()
         t0 = time.perf_counter()
         img = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(_build.launches)
-        seen = dict(counts)
+        seen = dict(counted.counts)
         calls, enc, dec, k1, k2 = MODE_CASES[name]
         k2_unet = 0 if seen["tiling"] else 44
         rule = {"flash_attention": 32 * seen["unet"] + seen["decode"] +
@@ -959,7 +1234,8 @@ def phase_modes():
                 "unet_calls": seen["unet"], "encodes": seen["encode"],
                 "decodes": seen["decode"], "launches": launches,
                 "expected_launches": expect,
-                "latents_finite": all(decoded),
+                "latents_finite": all(d["latents_finite"]
+                                      for d in counted.images),
                 "image_shape": list(img.shape),
                 "image_min": int(img.min()), "image_max": int(img.max())}
         if chunked is not None:
@@ -982,52 +1258,50 @@ def phase_modes():
     base = dict(REQUEST, seeds=[1], output_dtype="uint8")
     chunks = dict(chunk_steps=10, stop_event=threading.Event())
     sd15 = configs.SD15
-    unet_mod.apply, vae_mod.encode, vae_mod.decode = \
-        counted_apply, counted_encode, counted_decode
     try:
-        ms = random_modelset(sd15, seed=0, device="cuda")
-        pipe = UnifiedPipeline(ms, compute_dtype=torch.bfloat16)
-        pipe(**dict(base, init_image=init, strength=0.6))     # warm-up
-        kw = dict(base, init_image=init, strength=0.6)
-        run("img2img", lambda: pipe(**kw), lambda: pipe(**kw, **chunks))
-        kw = dict(base, init_image=init, mask_image=mask, strength=1.0,
-                  masked_area_init="shaped")
-        img = run("inpaint", lambda: pipe(**kw),
-                  lambda: pipe(**kw, **chunks))
-        hard = torch.from_numpy(_kept_pixels(mask_np)).cuda()
-        want = (init[0] * 255.0 + 0.5).clamp(0, 255).to(torch.uint8)
-        kept_equal = bool(torch.equal(img[0][hard], want[hard]))
-        emit({"phase": "modes", "case": "inpaint", "check": "kept_pixels",
-              "kept": int(hard.sum()), "equal": kept_equal})
-        if not kept_equal or not bool(hard.any()) or bool(hard.all()):
-            failed.append("inpaint: kept pixels differ from the init image")
-        run("hires", lambda: pipe(**dict(base, height=1024, width=1024,
-                                         hires_fix=True)))
-        run("tiling", lambda: pipe(**dict(base, tiling=True)))
-        lat = torch.randn((1, 192, 192, 4), device="cuda",
-                          generator=torch.Generator("cuda").manual_seed(0))
-        run("tiled_decode", lambda: pipe._to_uint8(pipe.vae_decode(lat)))
+        with _Counted() as counted:
+            ms = random_modelset(sd15, seed=0, device="cuda")
+            pipe = UnifiedPipeline(ms, compute_dtype=torch.bfloat16)
+            pipe(**dict(base, init_image=init, strength=0.6))     # warm-up
+            kw = dict(base, init_image=init, strength=0.6)
+            run("img2img", lambda: pipe(**kw), lambda: pipe(**kw, **chunks))
+            kw = dict(base, init_image=init, mask_image=mask, strength=1.0,
+                      masked_area_init="shaped")
+            img = run("inpaint", lambda: pipe(**kw),
+                      lambda: pipe(**kw, **chunks))
+            hard = torch.from_numpy(_kept_pixels(mask_np)).cuda()
+            want = (init[0] * 255.0 + 0.5).clamp(0, 255).to(torch.uint8)
+            kept_equal = bool(torch.equal(img[0][hard], want[hard]))
+            emit({"phase": "modes", "case": "inpaint", "check": "kept_pixels",
+                  "kept": int(hard.sum()), "equal": kept_equal})
+            if not kept_equal or not bool(hard.any()) or bool(hard.all()):
+                failed.append("inpaint: kept pixels differ from the init "
+                              "image")
+            run("hires", lambda: pipe(**dict(base, height=1024, width=1024,
+                                             hires_fix=True)))
+            run("tiling", lambda: pipe(**dict(base, tiling=True)))
+            lat = torch.randn((1, 192, 192, 4), device="cuda",
+                              generator=torch.Generator("cuda").manual_seed(0))
+            run("tiled_decode", lambda: pipe._to_uint8(pipe.vae_decode(lat)))
 
-        ms9 = random_modelset(dataclasses.replace(
-            sd15, unet=configs.UNET_SD15_INPAINT), seed=0, device="cuda")
-        kw = dict(base, init_image=init, mask_image=mask, strength=1.0)
-        pipe9 = UnifiedPipeline(ms9, compute_dtype=torch.bfloat16)
-        run("inpaint9", lambda: pipe9(**kw))
-        graft = UnifiedPipeline(ms9, compute_dtype=torch.bfloat16,
-                                graft_ms=ms)
-        run("graft", lambda: graft(**kw), lambda: graft(**kw, **chunks))
-        del pipe9, graft, ms9
-        torch.cuda.empty_cache()
+            ms9 = random_modelset(dataclasses.replace(
+                sd15, unet=configs.UNET_SD15_INPAINT), seed=0, device="cuda")
+            kw = dict(base, init_image=init, mask_image=mask, strength=1.0)
+            pipe9 = UnifiedPipeline(ms9, compute_dtype=torch.bfloat16)
+            run("inpaint9", lambda: pipe9(**kw))
+            graft = UnifiedPipeline(ms9, compute_dtype=torch.bfloat16,
+                                    graft_ms=ms)
+            run("graft", lambda: graft(**kw), lambda: graft(**kw, **chunks))
+            del pipe9, graft, ms9
+            torch.cuda.empty_cache()
 
-        ms5 = random_modelset(dataclasses.replace(
-            sd15, unet=configs.UNET_SD15_DEPTH), seed=0, device="cuda")
-        pipe5 = UnifiedPipeline(ms5, compute_dtype=torch.bfloat16)
-        run("depth2img", lambda: pipe5(**dict(base, init_image=init,
-                                              strength=1.0)))
-        del pipe5, ms5, pipe, ms
+            ms5 = random_modelset(dataclasses.replace(
+                sd15, unet=configs.UNET_SD15_DEPTH), seed=0, device="cuda")
+            pipe5 = UnifiedPipeline(ms5, compute_dtype=torch.bfloat16)
+            run("depth2img", lambda: pipe5(**dict(base, init_image=init,
+                                                  strength=1.0)))
+            del pipe5, ms5, pipe, ms
     finally:
-        unet_mod.apply, vae_mod.encode, vae_mod.decode = apply, encode, \
-            decode
         torch.cuda.empty_cache()
     if failed:
         raise AssertionError("modes: " + "; ".join(failed))
@@ -1706,6 +1980,220 @@ def phase_hints():
     if failed:
         raise AssertionError("hints: " + "; ".join(failed))
 
+
+
+# ------------------------------------------------------------- SD2, SDXL
+
+
+def _engine_bytes(ms) -> dict:
+    """Weight bytes of each model of a ModelSet."""
+    from gyre_tpu_torch.models.modelset import _leaves
+
+    def size(tree):
+        return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+    return {"unet": size(ms.unet_params), "vae": size(ms.vae_params),
+            "text_encoders": [size(t) for t in ms.text_params]}
+
+
+def phase_sd2():
+    """SD2 768² v-prediction (module docstring, 5e)."""
+    import numpy as np
+    import torch
+
+    from gyre_tpu_torch.manager.manager import EngineManager
+    from gyre_tpu_torch.server import build_server
+
+    paths = _c5_paths()
+    manager = EngineManager(
+        [{"id": "sd21", "default": True,
+          "model": {"preset": "sd21", "seed": 0}}],
+        device="cuda", batch_max=1, gather_ms=0.0)
+    failed = []
+    try:
+        t0 = time.perf_counter()
+        manager.load_engines()
+        pipe = manager.pipeline("sd21")
+        emit({"phase": "sd2", "load_s": time.perf_counter() - t0,
+              "natural_size": manager.natural_size("sd21"),
+              "prediction_type": pipe.schedule.prediction_type,
+              "weight_bytes": _engine_bytes(pipe.ms)})
+        kw = dict(REQUEST, height=768, width=768, seeds=[1],
+                  output_dtype="uint8", chunk_steps=10,
+                  stop_event=threading.Event())
+        n = paths["sd2_img2img_768"][0][0]
+        with _Counted() as counted:
+            img = counted.run("sd2", "txt2img", lambda: pipe(**kw),
+                              _launches(paths["sd2_768"]), (STEPS, 0, 1),
+                              768, failed)
+            init = img.float() / 255.0
+            counted.run(
+                "sd2", "img2img",
+                lambda: pipe(**dict(kw, seeds=[2], init_image=init,
+                                    strength=0.6)),
+                _launches(paths["sd2_img2img_768"]), (n, 1, 1), 768, failed)
+
+        # over gRPC without a size: the engine's natural 768²
+        server, port = build_server(manager, 0, batch_max=1,
+                                    host="localhost")
+        channel, generate = _grpc_generate(port)
+        try:
+            req = _generate_request(3, "sd21")
+            req.image.height = req.image.width = 0
+            t0 = time.perf_counter()
+            image = generate(req)
+            emit({"phase": "sd2", "case": "grpc_natural_size",
+                  "wall_s": time.perf_counter() - t0,
+                  "shape": list(image.shape)})
+            if image.shape != (768, 768, 3) or int(np.ptp(image)) == 0:
+                failed.append("sd2 grpc: no non-constant 768x768 image")
+        finally:
+            channel.close()
+            server.stop(0).wait()
+    finally:
+        manager.dispatcher.stop()
+        del manager
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
+# the size ids of phase_sdxl's second base call, in place of 1024²
+SDXL_OTHER_SIZE = (768, 1344)
+
+
+def phase_sdxl():
+    """SDXL base and refiner at 1024² (module docstring, 5f)."""
+    import grpc
+    import numpy as np
+    import torch
+
+    from gyre_tpu_torch import _build
+    from gyre_tpu_torch.manager.manager import EngineManager
+    from gyre_tpu_torch.server import build_server
+    from gyre_tpu_torch.services.generate import pb
+
+    paths = _c5_paths()
+    torch.cuda.reset_peak_memory_stats()
+    allocated_before = torch.cuda.memory_allocated()
+    manager = EngineManager(
+        [{"id": "sdxl", "default": True,
+          "model": {"preset": "sdxl", "seed": 0}},
+         {"id": "sdxl-refiner", "model": {"preset": "sdxl-refiner",
+                                          "seed": 0}}],
+        device="cuda", batch_max=1, gather_ms=0.0)
+    failed = []
+    try:
+        t0 = time.perf_counter()
+        manager.load_engines()
+        base = manager.pipeline("sdxl")
+        refiner = manager.pipeline("sdxl-refiner")
+        emit({"phase": "sdxl", "load_s": time.perf_counter() - t0,
+              "natural_size": [manager.natural_size("sdxl"),
+                               manager.natural_size("sdxl-refiner")],
+              "weight_bytes": {"sdxl": _engine_bytes(base.ms),
+                               "sdxl-refiner": _engine_bytes(refiner.ms)},
+              "allocated_before_bytes": allocated_before,
+              "allocated_bytes": torch.cuda.memory_allocated()})
+        kw = dict(REQUEST, height=1024, width=1024, seeds=[1],
+                  output_dtype="uint8", chunk_steps=10,
+                  stop_event=threading.Event())
+        base_launches = _launches(paths["sdxl_1024"])
+        refiner_launches = _launches(paths["refiner_img2img_1024"])
+        n = paths["refiner_img2img_1024"][0][0]
+        with _Counted() as counted:
+            img = counted.run("sdxl", "txt2img", lambda: base(**kw),
+                              base_launches, (STEPS, 0, 1), 1024, failed)
+            # only the size ids change: the pooled text and the time ids
+            # reach the UNet when the image changes
+            added_cond = base._added_cond
+
+            def other_size(prompt, negative, batch, guided, *_):
+                return added_cond(prompt, negative, batch, guided,
+                                  *SDXL_OTHER_SIZE)
+
+            base._added_cond = other_size
+            try:
+                other = counted.run("sdxl", "other_size_ids",
+                                    lambda: base(**kw), base_launches,
+                                    (STEPS, 0, 1), 1024, failed)
+            finally:
+                del base._added_cond
+            differs = not bool(torch.equal(img, other))
+            emit({"phase": "sdxl", "check": "size_ids_change_the_image",
+                  "size_ids": SDXL_OTHER_SIZE, "differs": differs})
+            if not differs:
+                failed.append("sdxl: other size ids gave the same image")
+            counted.run(
+                "sdxl", "refiner_img2img",
+                lambda: refiner(**dict(kw, init_image=img.float() / 255.0,
+                                       strength=0.34)),
+                refiner_launches, (n, 1, 1), 1024, failed)
+
+        # base -> refiner (start 0.34) -> RETURN over gRPC, both at the
+        # engines' natural size
+        server, port = build_server(manager, 0, batch_max=1,
+                                    host="localhost")
+        channel = grpc.insecure_channel(f"localhost:{port}")
+        try:
+            chain = pb.ChainRequest(request_id="smoke-chain")
+            for sid, engine, start, target in (
+                    ("base", "sdxl", None, "refine"),
+                    ("refine", "sdxl-refiner", 0.34, None)):
+                stage = chain.stage.add()
+                stage.id = sid
+                req = _generate_request(5, engine)
+                req.image.height = req.image.width = 0
+                if start is not None:
+                    req.image.parameters[0].schedule.start = start
+                stage.request.CopyFrom(req)
+                on = stage.on_status.add()
+                if target:
+                    on.action.append(pb.STAGE_ACTION_PASS)
+                    on.target = target
+                else:
+                    on.action.append(pb.STAGE_ACTION_RETURN)
+            call = channel.unary_stream(
+                "/gooseai.GenerationService/ChainGenerate",
+                request_serializer=pb.ChainRequest.SerializeToString,
+                response_deserializer=pb.Answer.FromString)
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            answers = list(call(chain, timeout=900))
+            wall = time.perf_counter() - t0
+            launches = dict(_build.launches)
+            expect = {k: base_launches[k] + refiner_launches[k]
+                      for k in base_launches}
+            images = [_png_pixels(a.binary)
+                      for a in _image_artifacts(answers)]
+            emit({"phase": "sdxl", "case": "grpc_chain", "wall_s": wall,
+                  "answers": [a.answer_id for a in answers],
+                  "shapes": [list(i.shape) for i in images],
+                  "launches": launches, "expected_launches": expect})
+            if [i.shape for i in images] != [(1024, 1024, 3)] or \
+                    int(np.ptp(images[0])) == 0:
+                failed.append("sdxl chain: no non-constant 1024x1024 "
+                              "image")
+            if launches != expect:
+                failed.append(f"sdxl chain: launches {launches} != "
+                              f"{expect}")
+        finally:
+            channel.close()
+            server.stop(0).wait()
+        t0 = time.perf_counter()
+        batch = manager.suggest_max_batch("sdxl")
+        emit({"phase": "sdxl", "check": "suggest_max_batch",
+              "size": manager.natural_size("sdxl"), "max_batch": batch,
+              "bytes_per_image": manager._probe_bytes_per_image(
+                  "sdxl", 1024, 1024),
+              "seconds": time.perf_counter() - t0,
+              "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    finally:
+        manager.dispatcher.stop()
+        del manager
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
 
 
 def _generate_request(seed: int, engine_id: str = "sd15"):
@@ -2440,13 +2928,17 @@ def main() -> int:
                                  "not add up to EXPECTED_LAUNCHES")
     kernels = phase_kernels()
     launches = phase_pipeline()
-    phase_samplers()
-    phase_modes()
-    phase_adapters()
-    phase_hints()
-    phase_serve()
-    phase_http()
-    phase_weights()
+    # what each phase leaves allocated on the card, once its engines are
+    # collected: an EngineManager is in a reference cycle (its hintsets hold
+    # its bound loader), so only the cycle collector frees its weights
+    for phase in (phase_samplers, phase_modes, phase_adapters, phase_hints,
+                  phase_sd2, phase_sdxl, phase_serve, phase_http,
+                  phase_weights):
+        phase()
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": phase.__name__.removeprefix("phase_"),
+              "allocated_after_bytes": torch.cuda.memory_allocated()})
     # ms, plain_ms, library_ms, bound_ms: sums over the phase-3 shapes of
     # the median times and of the bounds; the *_per_call keys weight each
     # shape by its launches in one batch-1 call; max_abs_err: the largest
@@ -2462,12 +2954,13 @@ def main() -> int:
                    for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
                 "bound_by": max(by, key=by.get)}
 
-    rows, mode_rows, cn_rows = [], [], []
+    rows, mode_rows, cn_rows, c5_rows = [], [], [], []
     for name, source, replaces in KERNEL_TABLE:
-        rs = [r for r in kernels[name]
-              if not r.get("modes") and not r.get("controlnet")]
+        rs = [r for r in kernels[name] if not r.get("modes") and
+              not r.get("controlnet") and not r.get("c5")]
         mode_rs = [r for r in kernels[name] if r.get("modes")]
         cn_rs = [r for r in kernels[name] if r.get("controlnet")]
+        c5_rs = [r for r in kernels[name] if r.get("c5")]
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
@@ -2479,8 +2972,13 @@ def main() -> int:
                           **summary(mode_rs)})
         cn_rows.append({"name": name, "shapes": len(cn_rs),
                         **summary(cn_rs)})
+        c5_rows.append({"name": name, "shapes": len(c5_rs),
+                        **summary(c5_rs)})
     emit({"mode_shapes": mode_rows})
     emit({"controlnet_shapes": cn_rows})
+    emit({"c5_shapes": c5_rows})
+    emit({"c5_paths": {name: _path_sums(kernels, parts)
+                       for name, parts in _c5_paths().items()}})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

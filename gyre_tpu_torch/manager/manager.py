@@ -29,9 +29,14 @@ merges adapted and plain requests. ``hintset_id`` entries name the hint
 models (ControlNets, T2I adapters) an engine's ``hintset:`` offers
 (hints.py, ``hint_model``). An engine's ``graft:`` names another engine
 whose UNet its pipeline grafts on top of its own (the 9-channel inpainting
-UNet under SD 1.5, say). Not ported, and raising NotImplementedError with
-the ROADMAP item when an engine or request needs them: the CLIP model for
-guidance (C6), task engines (D).
+UNet under SD 1.5, say). Every generate family of models/configs.py is
+served: SD1.x, SD2 (v-prediction at 768²), SDXL and its refiner (1024²),
+each at its natural size (``natural_size``: the config's ``sample_size``
+latents), which the servicer and the prewarm take where a request sets
+none. Not ported, and raising NotImplementedError with the ROADMAP item
+when an engine or request needs them: the CLIP model for guidance (C6),
+task engines (D), and the upscalers' class and scale-shift time
+conditioning of a UNet (D4).
 """
 
 from __future__ import annotations
@@ -437,8 +442,14 @@ class EngineManager:
 
     # ----------------------------------------------------- warm-up, sizing
 
-    def prewarm(self, engine_id: str | None = None, *, height: int = 512,
-                width: int = 512, steps: int = 50, buckets: bool = False):
+    def natural_size(self, engine_id: str) -> int:
+        """The engine's natural image size in pixels: its config's
+        ``sample_size`` latents times 8 (SD1.5 512, SD2 768, SDXL 1024)."""
+        return self.modelset(engine_id).config.sample_size * 8
+
+    def prewarm(self, engine_id: str | None = None, *,
+                height: int | None = None, width: int | None = None,
+                steps: int = 50, buckets: bool = False):
         """Run the default engine's serving configuration once ahead of
         the first request, through the dispatcher (the card's one owner
         thread): one 1-sample request as the servicer sends it (chunked,
@@ -446,10 +457,13 @@ class EngineManager:
         dispatcher's max batch; then the engine's ``options:
         prewarm_sizes``. On the card this builds the kernels, loads the
         CUDA libraries and sizes the caching allocator's pools before
-        traffic arrives. ``prewarm_state``: running -> done | failed."""
+        traffic arrives. The size defaults to the engine's natural one.
+        ``prewarm_state``: running -> done | failed."""
         eid = engine_id or self.default_engine_id()
         if eid is None:
             return
+        height = height or self.natural_size(eid)
+        width = width or self.natural_size(eid)
         t0 = time.time()
         self.prewarm_state = {"state": "running", "engine": eid}
         try:
@@ -492,11 +506,14 @@ class EngineManager:
                     "in %.1fs", eid, width, height, steps, sampler, sizes,
                     extra, time.time() - t0)
 
-    def suggest_max_batch(self, engine_id: str, height: int = 512,
-                          width: int = 512) -> int:
+    def suggest_max_batch(self, engine_id: str, height: int | None = None,
+                          width: int | None = None) -> int:
         """Device-memory batch estimate (the reference's BatchMode
         autodetect, gyre/manager.py:202-282): the card's free memory over
-        the measured bytes one image needs."""
+        the measured bytes one image needs, at (height, width), by default
+        the engine's natural size."""
+        height = height or self.natural_size(engine_id)
+        width = width or self.natural_size(engine_id)
         from ..utils.monitor import device_memory_stats
 
         stats = device_memory_stats()
@@ -534,11 +551,19 @@ class EngineManager:
                 t = torch.full((2,), 500.0, device=dev)
                 ctx = torch.randn((2, 77, ucfg.cross_attention_dim),
                                   device=dev, dtype=cdt)
+                added = None
+                if ucfg.addition_embed_dim:      # SDXL's text_time inputs
+                    added = {"text_embeds": torch.randn(
+                        (2, ucfg.addition_embed_dim), device=dev),
+                        "time_ids": torch.full(
+                            (2, ucfg.addition_time_ids), float(height),
+                            device=dev)}
                 torch.cuda.synchronize(dev)
                 torch.cuda.reset_peak_memory_stats(dev)
                 base = torch.cuda.memory_allocated(dev)
                 with torch.inference_mode():
-                    unet_mod.apply(ms.unet_params, ucfg, x, t, ctx)
+                    unet_mod.apply(ms.unet_params, ucfg, x, t, ctx,
+                                   added_cond=added)
                 torch.cuda.synchronize(dev)
                 return torch.cuda.max_memory_allocated(dev) - base
 
@@ -556,8 +581,10 @@ class EngineManager:
 
     def engine_ready(self, spec) -> bool:
         """Ready when its weights are resident and the port has a path for
-        it: a generate engine, its UNet taking 4 input channels (txt2img
-        and every mode), 9 (inpainting) or 5 (depth2img). A task engine
+        it: a generate engine of any family (SD1.x, SD2, SDXL and its
+        refiner: a UNet with class or scale-shift conditioning does not
+        build), its UNet taking 4 input channels (txt2img and every mode),
+        9 (inpainting) or 5 (depth2img). A task engine
         needs its pipeline (ROADMAP D) and is not ready, since each of its
         requests would answer UNIMPLEMENTED."""
         ms = self._modelsets.get(spec.id)

@@ -6,7 +6,11 @@ Counterpart of gyre_tpu/models/controlnet.py, same params tree and NHWC
 layout. Its resnets and transformers are the UNet's (models/unet.py), so
 each resnet runs the fused kernels K2a + K2b and each attention the flash
 kernel K1 on the card; the conditioning embedding and the zero convs are
-plain convs, as in the JAX package.
+plain convs, as in the JAX package. Its transformers take the UNet
+config's projection layout (SD2 ControlNets are linear). As in the JAX
+package it has no ``add_embed``: on an SDXL UNet it runs without the
+pooled text and time ids, which diffusers' SDXL ControlNets embed (ROADMAP
+queue 3).
 """
 
 from __future__ import annotations
@@ -55,7 +59,7 @@ def param_specs(cfg: UNetConfig) -> Params:
             if cfg.attn_levels[lvl]:
                 blk["attns"].append(_transformer_specs(
                     c_out, cfg.cross_attention_dim,
-                    cfg.transformer_layers[lvl]))
+                    cfg.transformer_layers[lvl], cfg.linear_projection))
             zero_convs.append(L.conv_spec(1, 1, c_out, c_out))
         if lvl < cfg.levels - 1:
             blk["downsample"] = L.conv_spec(3, 3, c_out, c_out)
@@ -69,7 +73,8 @@ def param_specs(cfg: UNetConfig) -> Params:
                 "res2": _resnet_specs(c_mid, c_mid, ted)}
     if cfg.mid_attn:
         p["mid"]["attn"] = _transformer_specs(
-            c_mid, cfg.cross_attention_dim, cfg.mid_transformer_layers)
+            c_mid, cfg.cross_attention_dim, cfg.mid_transformer_layers,
+            cfg.linear_projection)
     p["mid_zero"] = L.conv_spec(1, 1, c_mid, c_mid)
     return p
 
@@ -132,7 +137,8 @@ def apply(params: Params, cfg: UNetConfig, x, timesteps, context,
             h = _resnet(res, h, temb, groups)
             if blk["attns"]:
                 h = _transformer(blk["attns"][i], h, context,
-                                 cfg.num_heads[lvl], groups)
+                                 cfg.num_heads[lvl], groups,
+                                 cfg.linear_projection)
             feats.append(h)
         if "downsample" in blk:
             h = L.conv2d(blk["downsample"], h, stride=2, padding=1)
@@ -142,7 +148,8 @@ def apply(params: Params, cfg: UNetConfig, x, timesteps, context,
     h = _resnet(mid["res1"], h, temb, groups)
     if "attn" in mid:
         h = _transformer(mid["attn"], h, context,
-                         cfg.num_heads[cfg.levels - 1], groups)
+                         cfg.num_heads[cfg.levels - 1], groups,
+                         cfg.linear_projection)
     h = _resnet(mid["res2"], h, temb, groups)
 
     scale = float(conditioning_scale)

@@ -1,7 +1,10 @@
 """Checkpoint loading and export: diffusers-layout safetensors <-> ModelSet.
 
 Counterpart of gyre_tpu/models/load.py, the Stable Diffusion subset: the
-UNet, the VAE (encoder and decoder) and the CLIP text tower. The port's
+UNet (SD1.x, SD2's linear ``proj_in``/``proj_out``, SDXL's
+``add_embedding``), the VAE (encoder and decoder) and the CLIP text towers
+(``text_encoder``, and SDXL's ``text_encoder_2`` with its
+``text_projection``). The port's
 leaves are in torch's own layouts (linear (out, in), conv OIHW), so a
 state-dict tensor goes in as it is; only the fused convs' HWIO weights
 (``conv_hwio``) are permuted. The key maps are functions from a leaf's path
@@ -36,6 +39,7 @@ from .modelset import ModelSet, convert_tree, map_specs, model_specs
 _LEAF = {"w": "weight", "b": "bias", "scale": "weight", "bias": "bias"}
 _TOP = {"conv_in": "conv_in", "norm_out": "conv_norm_out",
         "conv_out": "conv_out"}
+_EMBED = {"time_embed": "time_embedding", "add_embed": "add_embedding"}
 _MID = {"res1": "resnets.0", "res2": "resnets.1", "attn": "attentions.0"}
 _RESNET = {"norm1": "norm1", "conv1": "conv1", "norm2": "norm2",
            "conv2": "conv2", "time_emb": "time_emb_proj",
@@ -69,8 +73,8 @@ def _transformer(mod) -> str:
 def unet_keys(path) -> tuple[str, ...]:
     *mod, leaf = path
     head = mod[0]
-    if head == "time_embed":                     # lin1 -> linear_1
-        name = "time_embedding.linear_" + mod[1][-1]
+    if head in _EMBED:                           # lin1 -> linear_1
+        name = f"{_EMBED[head]}.linear_{mod[1][-1]}"
     elif head == "mid":
         inner = _transformer(mod[2:]) if mod[1] == "attn" \
             else _RESNET[mod[2]]

@@ -1,16 +1,21 @@
-"""Stable Diffusion conditional UNet (SD1.x) on torch tensors.
+"""Stable Diffusion conditional UNet (SD1.x, SD2.x, SDXL) on torch tensors.
 
 Counterpart of gyre_tpu/models/unet.py, same params tree and NHWC layout.
 Every resnet's GN -> SiLU -> conv3x3 (both convs, eps 1e-5) goes through the
 fused kernels K2a/K2b, and every self- and cross-attention through the flash
 kernel K1. Under seamless tiling the convs pad circularly on the tiled
 axes, so the resnets take the plain GroupNorm -> SiLU -> conv path, as in
-the JAX package, and only the attentions run a kernel. Not ported yet, and
-raising when asked for: SD2/SDXL features (linear projections,
-added/class conditioning, scale-shift time conditioning) and token
-merging. ControlNet residuals (``down_residuals``, ``mid_residual``) and
-T2I-adapter features (``adapter_states``) are added as in the JAX
-package.
+the JAX package, and only the attentions run a kernel.
+
+The UNetConfig picks the family: 1x1-conv or linear (SD2, SDXL)
+``proj_in``/``proj_out``, levels without attention and the transformer
+depth and heads of each level (SDXL), and SDXL's "text_time"
+conditioning (``added_cond``: the pooled text and the size/crop time ids,
+through ``add_embed`` into the time embedding). Not ported yet, and
+raising when asked for: the upscalers' class and scale-shift time
+conditioning (ROADMAP D4) and token merging. ControlNet residuals
+(``down_residuals``, ``mid_residual``) and T2I-adapter features
+(``adapter_states``) are added as in the JAX package.
 """
 
 from __future__ import annotations
@@ -26,14 +31,12 @@ _EPS = 1e-5
 
 def _check_config(cfg: UNetConfig):
     unported = [name for name, on in (
-        ("linear_projection", cfg.linear_projection),
-        ("addition_embed_dim", cfg.addition_embed_dim),
         ("class_embed", cfg.class_embed),
         ("time_scale_shift", cfg.time_scale_shift)) if on]
     if unported:
         raise NotImplementedError(
-            f"UNet config features not ported to gyre_tpu_torch yet: "
-            f"{unported}")
+            f"UNet config features of the upscalers not ported to "
+            f"gyre_tpu_torch yet (ROADMAP D4): {unported}")
 
 
 # ------------------------------------------------------------ param specs
@@ -59,7 +62,11 @@ def _attn_specs(dim, ctx_dim):
             "out": L.linear_spec(dim, dim)}
 
 
-def _transformer_specs(dim, ctx_dim, n_layers):
+def _transformer_specs(dim, ctx_dim, n_layers, linear_proj):
+    def proj():
+        return (L.linear_spec(dim, dim) if linear_proj
+                else L.conv_spec(1, 1, dim, dim))
+
     return {
         "norm": L.norm_spec(dim),
         "blocks": [{
@@ -69,8 +76,8 @@ def _transformer_specs(dim, ctx_dim, n_layers):
             "ff1": L.linear_spec(dim, dim * 8),    # GEGLU (4d pairs)
             "ff2": L.linear_spec(dim * 4, dim),
         } for _ in range(n_layers)],
-        "proj_in": L.conv_spec(1, 1, dim, dim),
-        "proj_out": L.conv_spec(1, 1, dim, dim),
+        "proj_in": proj(),
+        "proj_out": proj(),
     }
 
 
@@ -85,6 +92,11 @@ def param_specs(cfg: UNetConfig) -> Params:
         "norm_out": L.norm_spec(ch0),
         "conv_out": L.conv_spec(3, 3, ch0, cfg.out_channels),
     }
+    if cfg.addition_embed_dim:
+        add_in = cfg.addition_embed_dim + \
+            cfg.addition_time_dim * cfg.addition_time_ids
+        p["add_embed"] = {"lin1": L.linear_spec(add_in, ted),
+                          "lin2": L.linear_spec(ted, ted)}
     down = []
     c_prev = ch0
     for lvl, c_out in enumerate(cfg.block_out_channels):
@@ -95,7 +107,7 @@ def param_specs(cfg: UNetConfig) -> Params:
             if cfg.attn_levels[lvl]:
                 blk["attns"].append(_transformer_specs(
                     c_out, cfg.cross_attention_dim,
-                    cfg.transformer_layers[lvl]))
+                    cfg.transformer_layers[lvl], cfg.linear_projection))
         if lvl < cfg.levels - 1:
             blk["downsample"] = L.conv_spec(3, 3, c_out, c_out)
         down.append(blk)
@@ -107,7 +119,8 @@ def param_specs(cfg: UNetConfig) -> Params:
                 "res2": _resnet_specs(c_mid, c_mid, ted)}
     if cfg.mid_attn:
         p["mid"]["attn"] = _transformer_specs(
-            c_mid, cfg.cross_attention_dim, cfg.mid_transformer_layers)
+            c_mid, cfg.cross_attention_dim, cfg.mid_transformer_layers,
+            cfg.linear_projection)
 
     up = []
     rev = list(reversed(cfg.block_out_channels))
@@ -123,7 +136,7 @@ def param_specs(cfg: UNetConfig) -> Params:
             if cfg.attn_levels[lvl]:
                 blk["attns"].append(_transformer_specs(
                     c_out, cfg.cross_attention_dim,
-                    cfg.transformer_layers[lvl]))
+                    cfg.transformer_layers[lvl], cfg.linear_projection))
         if i < cfg.levels - 1:
             blk["upsample"] = L.conv_spec(3, 3, c_out, c_out)
         up.append(blk)
@@ -179,16 +192,22 @@ def _tblock(p, x, ctx, heads):
     return x + L.linear(p["ff2"], L.geglu(p["ff1"], h))
 
 
-def _transformer(p, x, ctx, heads, groups):
-    """Spatial transformer over an NHWC feature map (1x1 conv projections,
-    the SD1.x layout)."""
+def _transformer(p, x, ctx, heads, groups, linear_proj):
+    """Spatial transformer over an NHWC feature map: 1x1 conv projections
+    (SD1.x) or linear ones on [B, HW, C] (SD2, SDXL)."""
     b, h, w, c = x.shape
     res = x
     x = L.group_norm(p["norm"], x, groups, eps=1e-6)
-    x = L.conv2d(p["proj_in"], x).reshape(b, h * w, c)
+    if linear_proj:
+        x = L.linear(p["proj_in"], x.reshape(b, h * w, c))
+    else:
+        x = L.conv2d(p["proj_in"], x).reshape(b, h * w, c)
     for blk in p["blocks"]:
         x = _tblock(blk, x, ctx, heads)
-    x = L.conv2d(p["proj_out"], x.reshape(b, h, w, c))
+    if linear_proj:
+        x = L.linear(p["proj_out"], x).reshape(b, h, w, c)
+    else:
+        x = L.conv2d(p["proj_out"], x.reshape(b, h, w, c))
     return x + res
 
 
@@ -201,28 +220,42 @@ def apply(params: Params, cfg: UNetConfig, x, timesteps, context, *,
           adapter_states: list | None = None,
           tiling: tuple[bool, bool] = (False, False),
           tome_ratio: float = 0.0):
-    """Predict noise: x [B,H,W,Cin], timesteps [B], context [B,S,D];
-    ``tiling`` = (tiling_x, tiling_y) makes the image seamless on those
-    axes. ``down_residuals`` (one a skip) and ``mid_residual`` are a
-    ControlNet's, added to the skips after the down path and after the mid
-    block's last resnet; ``adapter_states`` (one a level, or None) a T2I
-    adapter's, added after a level's last resnet, before its skip is
-    pushed. The conditioning arguments of the JAX package's signature are
-    kept; those not ported yet raise."""
+    """Predict noise (or v): x [B,H,W,Cin], timesteps [B], context
+    [B,S,D]; ``added_cond`` (SDXL) {"text_embeds": [B, pooled dim],
+    "time_ids": [B, n ids]}, its embedding added to the time embedding
+    (skipped when None, as in the JAX package); ``tiling`` = (tiling_x,
+    tiling_y) makes the image seamless on those axes. ``down_residuals``
+    (one a skip) and ``mid_residual`` are a ControlNet's, added to the
+    skips after the down path and after the mid block's last resnet;
+    ``adapter_states`` (one a level, or None) a T2I adapter's, added after
+    a level's last resnet, before its skip is pushed. The conditioning
+    arguments of the JAX package's signature are kept; those not ported
+    yet raise."""
     _check_config(cfg)
-    unported = [name for name, on in (
-        ("added_cond", added_cond is not None),
-        ("class_labels", class_labels is not None),
-        ("tome_ratio", tome_ratio > 0)) if on]
-    if unported:
+    if class_labels is not None:
         raise NotImplementedError(
-            f"UNet inputs not ported to gyre_tpu_torch yet: {unported}")
+            "class_labels (the x4 upscaler's noise level) are not ported "
+            "to gyre_tpu_torch yet (ROADMAP D4)")
+    if tome_ratio > 0:
+        raise NotImplementedError(
+            "token merging is not ported to gyre_tpu_torch yet (ROADMAP "
+            "C6)")
     dtype = x.dtype
     groups = cfg.norm_groups
+    lp = cfg.linear_projection
     temb = L.timestep_embedding(timesteps, cfg.block_out_channels[0])
     temb = L.linear(params["time_embed"]["lin2"],
                     L.silu(L.linear(params["time_embed"]["lin1"],
                                     temb.to(dtype))))
+    if cfg.addition_embed_dim and added_cond is not None:
+        # each time id's sinusoid, after the pooled text (f32), through
+        # lin1 -> SiLU -> lin2
+        tids = L.timestep_embedding(added_cond["time_ids"].reshape(-1),
+                                    cfg.addition_time_dim)
+        aug = torch.cat([added_cond["text_embeds"].float(),
+                         tids.reshape(x.shape[0], -1)], dim=-1)
+        temb = temb + L.linear(params["add_embed"]["lin2"], L.silu(
+            L.linear(params["add_embed"]["lin1"], aug.to(dtype))))
 
     tx, ty = tiling
     h = L.conv2d_tiled(params["conv_in"], x, tiling_x=tx, tiling_y=ty)
@@ -232,7 +265,7 @@ def apply(params: Params, cfg: UNetConfig, x, timesteps, context, *,
             h = _resnet(res, h, temb, groups, tiling)
             if blk["attns"]:
                 h = _transformer(blk["attns"][i], h, context,
-                                 cfg.num_heads[lvl], groups)
+                                 cfg.num_heads[lvl], groups, lp)
             if (adapter_states is not None and
                     i == len(blk["resnets"]) - 1 and
                     lvl < len(adapter_states) and
@@ -249,7 +282,7 @@ def apply(params: Params, cfg: UNetConfig, x, timesteps, context, *,
     h = _resnet(mid["res1"], h, temb, groups, tiling)
     if "attn" in mid:
         h = _transformer(mid["attn"], h, context,
-                         cfg.num_heads[cfg.levels - 1], groups)
+                         cfg.num_heads[cfg.levels - 1], groups, lp)
     h = _resnet(mid["res2"], h, temb, groups, tiling)
     if mid_residual is not None:
         h = h + mid_residual.to(dtype)
@@ -261,7 +294,7 @@ def apply(params: Params, cfg: UNetConfig, x, timesteps, context, *,
             h = _resnet(res, h, temb, groups, tiling)
             if blk["attns"]:
                 h = _transformer(blk["attns"][j], h, context,
-                                 cfg.num_heads[lvl], groups)
+                                 cfg.num_heads[lvl], groups, lp)
         if "upsample" in blk:
             h = L.conv2d_tiled(blk["upsample"], L.upsample_nearest_2x(h),
                                tiling_x=tx, tiling_y=ty)

@@ -16,11 +16,12 @@ The module-name resolvers, the grouping and the delta rebuild are the JAX
 package's, host numpy in float32 (the port's params tree has the JAX
 package's paths). ``apply_lora`` puts each delta into the layout of the
 leaf it lands on, by the leaf's ``Spec.kind``: linear (out, in) and conv
-OIHW take the checkpoint's torch layout as it is, the fused resnet convs
-(``conv_hwio``) take it permuted to HWIO. It runs in two halves: the host
-work (``lora_deltas``: rebuild, layout, scale) and the device adds
-(``fold_deltas``), so that a server can keep the first off the thread
-that owns the card. The fold never writes into a
+OIHW take the checkpoint's torch layout as it is (SD2's and SDXL's linear
+``proj_in``/``proj_out`` take 2-D deltas, and a 1x1-conv delta's only
+tap), the fused resnet convs (``conv_hwio``) take it permuted to HWIO.
+It runs in two halves: the host work (``lora_deltas``: rebuild, layout,
+scale) and the device adds (``fold_deltas``), so that a server can keep
+the first off the thread that owns the card. The fold never writes into a
 tensor: a touched leaf is a new tensor, and the dicts and lists along its
 path are new, while every other subtree is shared with the base tree.
 """
@@ -365,7 +366,9 @@ def apply_lora(unet_params, text_params_list, state: dict,
                scale: float | dict = 1.0, *, config):
     """(unet_params', text_params_list', applied) with the adapter's deltas
     folded in; ``config`` is the ModelSet's config (its spec trees give
-    each leaf's layout). The text-encoder deltas go to tower 0."""
+    each leaf's layout). The text-encoder deltas go to tower 0, as in the
+    JAX package: an SDXL LoRA's ``lora_te2_`` (OpenCLIP-bigG) deltas do not
+    fit CLIP-L's leaves there and are dropped (ROADMAP queue 3)."""
     return fold_deltas(unet_params, text_params_list,
                        lora_deltas(state, scale, config=config))
 

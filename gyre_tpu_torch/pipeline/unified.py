@@ -8,6 +8,13 @@ CFG: both halves in one UNet call) with its per-step noise
 ``VAE_TILE_THRESHOLD`` latents) and, on request, quantisation to uint8 on
 the device.
 
+Model families, as the ModelSet's config has them: SD1.x; SD2 (OpenCLIP-H
+at its penultimate layer, linear projections, v-prediction at 768²); SDXL
+(CLIP-L and OpenCLIP-bigG contexts concatenated along the feature axis,
+the pooled text of the last tower and the size time ids as the UNet's
+``added_cond``, ``_added_cond``) and its refiner (bigG alone, 5 time ids
+with an aesthetic score).
+
 Modes, chosen by the request as in the JAX package: txt2img; img2img (an
 init image, VAE-encoded, noised to the last round(steps * strength) steps
 of the ramp); inpaint (a mask: on a 4-channel UNet the masked area is
@@ -204,7 +211,7 @@ class _HintStack:
         x's rows are [unguided B; guided B] when the request is guided."""
         cdt, ucfg = self.cdt, self.ucfg
 
-        def hinted(x, t, context):
+        def hinted(x, t, context, **cond):
             controlnets, states, states_g = self.features(*x.shape[1:3])
             down_res = mid_res = None
             for cn in controlnets:
@@ -244,7 +251,8 @@ class _HintStack:
                 ast = gst if ast is None else [a + g for a, g in
                                                zip(ast, gst)]
             return raw_unet(x, t, context, down_residuals=down_res,
-                            mid_residual=mid_res, adapter_states=ast)
+                            mid_residual=mid_res, adapter_states=ast,
+                            **cond)
 
         return hinted
 
@@ -286,9 +294,9 @@ class UnifiedPipeline:
 
     # ------------------------------------------------------------ prompts
 
-    def _encode_ids(self, ids, clip_layer: int):
-        cfg = self.ms.config.text_encoders[0]
-        params = self.ms.text_params[0]
+    def _encode_ids(self, ids, clip_layer: int, tower: int):
+        cfg = self.ms.config.text_encoders[tower]
+        params = self.ms.text_params[tower]
         out = clip_mod.apply(params, cfg, ids, dtype=self.compute_dtype)
         return clip_mod.hidden_for_layer(params, cfg, out, clip_layer)
 
@@ -303,12 +311,31 @@ class UnifiedPipeline:
 
     def encode_prompt_list(self, texts, pad_to_chunks: int,
                            clip_layer: int | None = None):
-        """[B, T, D] contexts for a list of prompts, one tower call."""
+        """[B, T, D] contexts for a list of prompts, one call a tower; with
+        two towers (SDXL) each tower's contexts, padded to the same chunks,
+        concatenated along the feature axis. A falsy ``clip_layer`` takes
+        the config's (-1 for SD1.x, -2 for SD2 and SDXL)."""
         layer = clip_layer if clip_layer else self.ms.config.clip_layer
         parsed = [prompts.WeightedPrompt.parse(t or "") for t in texts]
-        return prompts.encode_weighted_prompts_batch(
-            lambda ids: self._encode_ids(ids, layer), self.ms.tokenizer,
-            parsed, pad_to_chunks=pad_to_chunks, device=self.device)
+        parts = [prompts.encode_weighted_prompts_batch(
+            lambda ids, i=i: self._encode_ids(ids, layer, i),
+            self.ms.tokenizer, parsed, pad_to_chunks=pad_to_chunks,
+            device=self.device)
+            for i in range(len(self.ms.config.text_encoders))]
+        return torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
+
+    def encode_pooled_batch(self, texts):
+        """[B, D] pooled text of the last tower (SDXL's ``text_embeds``:
+        the projected EOS row), one call for the whole list, each prompt's
+        first chunk unweighted, as the JAX package takes it."""
+        ids = np.stack([prompts.tokenize_weighted(
+            self.ms.tokenizer, prompts.WeightedPrompt.parse(t or ""))[0][0]
+            for t in texts])
+        tower = len(self.ms.config.text_encoders) - 1
+        return clip_mod.apply(
+            self.ms.text_params[tower], self.ms.config.text_encoders[tower],
+            torch.from_numpy(ids).to(self.device),
+            dtype=self.compute_dtype)["pooled"]
 
     @torch.inference_mode()
     def _contexts(self, prompt, negative_prompt, batch: int, guided: bool,
@@ -324,6 +351,42 @@ class UnifiedPipeline:
         ctx_g = enc[[row[t] for t in pos]]
         ctx_u = enc[[row[t] for t in neg]] if guided else ctx_g
         return ctx_u, ctx_g
+
+    @torch.inference_mode()
+    def _added_cond(self, prompt, negative_prompt, batch: int, guided: bool,
+                    height: int, width: int):
+        """SDXL's "text_time" conditioning of each CFG half, (added_u,
+        added_g) {"text_embeds", "time_ids"} with one row a sample, or
+        (None, None) for a UNet without it. The time ids are the request's
+        size in pixels: [h, w, 0, 0, h, w] (original size, crop, target
+        size) for the base; the refiner's 5 take an aesthetic score in the
+        target's place, 6.0 guided and 2.5 unguided. The pooled text comes
+        from one call over every distinct prompt and negative prompt, so
+        coalesced rows keep their own."""
+        ucfg = self.ms.config.unet
+        if not ucfg.addition_embed_dim:
+            return None, None
+        if ucfg.addition_time_ids == 5:
+            ids_g = [height, width, 0, 0, 6.0]
+            ids_u = [height, width, 0, 0, 2.5]
+        else:
+            ids_g = ids_u = [height, width, 0, 0, height,
+                             width][:ucfg.addition_time_ids]
+        pos, neg = _prompt_rows(prompt, negative_prompt, batch)
+        pos = [t or "" for t in pos]
+        neg = [t or "" for t in neg]
+        texts = list(dict.fromkeys(pos + (neg if guided else [])))
+        pooled = self.encode_pooled_batch(texts).float()
+        row = {t: i for i, t in enumerate(texts)}
+
+        def half(rows, ids):
+            return {"text_embeds": pooled[[row[t] for t in rows]],
+                    "time_ids": torch.tensor([ids] * batch,
+                                             dtype=torch.float32,
+                                             device=self.device)}
+
+        added_g = half(pos, ids_g)
+        return (half(neg, ids_u) if guided else added_g), added_g
 
     @torch.inference_mode()
     def _graft_contexts(self, prompt, negative_prompt, batch: int,
@@ -400,11 +463,11 @@ class UnifiedPipeline:
 
     def _denoiser(self, ctx_u, ctx_g, guidance_scale, guided: bool,
                   tiling=(False, False), wrap_model=None, ms=None,
-                  hints: _HintStack | None = None):
+                  hints: _HintStack | None = None, added=(None, None)):
         """denoise(x, sigma) -> x0 through ``ms``'s UNet (this engine's by
-        default), conditioned by ``hints``, its input built by
-        ``wrap_model`` (inpaint9, depth2img) and CFG-guided when
-        ``guided``."""
+        default), conditioned by ``hints`` and by ``added`` (SDXL's
+        (added_u, added_g), or Nones), its input built by ``wrap_model``
+        (inpaint9, depth2img) and CFG-guided when ``guided``."""
         ms = ms or self.ms
         ucfg = ms.config.unet
         cdt = self.compute_dtype
@@ -417,11 +480,19 @@ class UnifiedPipeline:
         model_fn = raw_unet if hints is None else hints.wrap(raw_unet)
         if wrap_model:
             model_fn = wrap_model(model_fn)
+        added_u, added_g = added
+        extra_u = {} if added_u is None else {"added_cond": added_u}
+        extra_g = {} if added_g is None else {"added_cond": added_g}
         if guided:
-            model = denoiser.cfg_model(model_fn, ctx_u, ctx_g, guidance_scale)
+            model = denoiser.cfg_model(model_fn, ctx_u, ctx_g, guidance_scale,
+                                       extra_uncond=extra_u,
+                                       extra_cond=extra_g)
         else:
-            model = denoiser.plain_model(model_fn, ctx_g)
-        return denoiser.make_denoiser(model, self.schedule)
+            model = denoiser.plain_model(model_fn, ctx_g, **extra_g)
+        # this engine's sigma ramp; a grafted model's own prediction type
+        return denoiser.make_denoiser(
+            model, self.schedule,
+            prediction_type=ms.schedule.prediction_type)
 
     @torch.inference_mode()
     def _initial(self, seeds, lh: int, lw: int, sigma_max: float):
@@ -619,6 +690,8 @@ class UnifiedPipeline:
 
         ctx_u, ctx_g = self._contexts(prompt, negative_prompt, batch, guided,
                                       clip_layer)
+        added = self._added_cond(prompt, negative_prompt, batch, guided,
+                                 height, width)
         init = None if init_image is None else self._image(init_image)
         init_latents, mask_keep, extra = self._mode_inputs(
             mode, keys, batch, height, width, strength, init, mask_image,
@@ -634,13 +707,11 @@ class UnifiedPipeline:
         elif mode == "depth2img":
             wrap_model = modes.make_extra_channels_wrapper(extra)
         dn_base = self._denoiser(ctx_u, ctx_g, gs_arg, guided, tiling_xy,
-                                 wrap_model, hints=hint_stack)
+                                 wrap_model, hints=hint_stack, added=added)
         if self._graft_pipe is not None:
+            # the top model under its own prediction type, without SDXL's
+            # added conditioning (as in the JAX package)
             gms = self._graft_pipe.ms
-            if gms.schedule.prediction_type != "epsilon":
-                raise NotImplementedError(
-                    f"graft onto a {gms.schedule.prediction_type} model is "
-                    "not ported to gyre_tpu_torch yet (ROADMAP C5)")
             gctx_u, gctx_g = self._graft_contexts(
                 prompt, negative_prompt, batch, guided)
             dn_top = self._denoiser(gctx_u, gctx_g, gs_arg, guided,

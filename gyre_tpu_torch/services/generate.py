@@ -4,9 +4,11 @@ Counterpart of gyre_tpu/services/generate.py. A Request carrying text
 prompts (negative prompts as negative weights), image, mask and depth
 artifacts (an init image's alpha as its mask; ``ref`` artifacts resolved
 by uuid or id within the request), size, steps, samples, seeds, a sampler,
-cfg_scale, eta, churn, sigma limits / karras rho, clip_layer, the
+cfg_scale, eta, churn, sigma limits / karras rho, clip_layer (the
+prompt's ``clip_layer`` n as layer -n; unset, the engine's own), the
 schedule's start (img2img strength), the masked-area init, the hires fix
-and tiling runs through the shared dispatcher and streams one Answer per
+and tiling runs through the shared dispatcher (at the engine's natural
+size where the request sets none) and streams one Answer per
 image, as PNG or WebP by the request's accept list (``negotiate_mime``),
 then the artifacts it asked to have echoed back. LoRA and token-embedding
 artifacts (weights, ``named_weights``, ``token_overrides``) fold into an
@@ -61,8 +63,8 @@ class ExtractedParams:
     request_id: str = ""
     prompt: str = ""
     negative_prompt: str = ""
-    height: int = 512
-    width: int = 512
+    height: int | None = None           # None: the engine's natural size
+    width: int | None = None
     steps: int = 50
     samples: int = 1
     seeds: list = field(default_factory=list)
@@ -496,6 +498,10 @@ class GenerationServiceServicer:
         request asked to have echoed back."""
         p = extract_params(request)
         engine_id = p.engine_id or self.manager.default_engine_id()
+        # an unset size is the engine's natural one (SD1.5 512, SD2 768,
+        # SDXL 1024)
+        natural = self.manager.natural_size(engine_id)
+        p.height, p.width = p.height or natural, p.width or natural
         opts = self.manager.spec(engine_id).options or {}
         unknown = sorted(set(opts) - set(_ENGINE_OPTIONS))
         if unknown:

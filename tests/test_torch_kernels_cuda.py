@@ -16,7 +16,9 @@ main-path sizes: K1 at T >= 1024 for every SD1.5 head dim and on strided
 cluster launch at path shapes of batch 1 and 8, ragged, with vectors that
 straddle two groups and under cancellation; both at the hires fix's
 ragged UNet levels (9, 18, 36), on a non-square canvas and at the
-ControlNet's batch-1 shapes (one CFG row). Bounds as in chip_smoke.py:
+ControlNet's batch-1 shapes (one CFG row); K1 at SD2's and SDXL's head
+dim 64 and K2a/K2b at the SDXL refiner's channel counts (12 to 96
+channels a group). Bounds as in chip_smoke.py:
 2e-2 of max |plain| in bf16 (compounded bf16 rounding, ~5x margin), 1e-3
 for K2a's f32 statistics.
 """
@@ -312,3 +314,38 @@ def test_kernels_at_controlnet_batch1_shapes(gen, hw, pairs, t, d):
         k, v = _btd(gen, 1, tk, 8, d), _btd(gen, 1, tk, 8, d)
         assert _rel(A.attention(q, k, v), _attention_ref(q, k, v)) <= \
             BF16_BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,tq,tk,d", [
+    (2, 5, 2304, 2304, 64), (2, 10, 1024, 77, 64), (2, 20, 576, 576, 64),
+    (1, 24, 300, 77, 64)])
+def test_flash_attention_head_dim_64(gen, b, h, tq, tk, d):
+    """SD2's and SDXL's one head dim (64), at 5 to 24 heads (SD2 at 768²,
+    SDXL and its refiner at 1024²), self and against 77 tokens."""
+    q = _btd(gen, b, tq, h, d)
+    k, v = _btd(gen, b, tk, h, d), _btd(gen, b, tk, h, d)
+    assert _rel(A.attention(q, k, v), _attention_ref(q, k, v)) <= BF16_BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,c,co", [
+    (32, 384, 768), (16, 1152, 768), (16, 2304, 1536), (8, 3072, 1536)])
+def test_kernels_at_refiner_channels(gen, hw, c, co):
+    """K2a's slabs and K2b at the SDXL refiner's channel counts: 12, 36,
+    72 and 96 channels a group (384, 1152, 2304, 3072), at a CFG call's
+    two rows."""
+    x = (torch.randn((2, hw, hw, c), generator=gen, device="cuda") +
+         torch.randn((c,), generator=gen, device="cuda")).to(torch.bfloat16)
+    gs = 1 + 0.1 * _randn(gen, c, dtype=torch.float32)
+    gb = 0.1 * _randn(gen, c, dtype=torch.float32)
+    wt = _randn(gen, 3, 3, c, co) * (9 * c) ** -0.5
+    cb = 0.1 * _randn(gen, co, dtype=torch.float32)
+    a, bb = FC.gn_affine(x, gs, gb, 32, 1e-5)
+    a_ref, b_ref = FC.gn_affine_plain(x, gs, gb, 32, 1e-5)
+    assert _rel(a, a_ref) <= F32_STATS_BOUND
+    assert _rel(bb, b_ref) <= F32_STATS_BOUND
+    chain = FC.gn_silu_conv3x3(x, gs, gb, wt, cb, groups=32, eps=1e-5)
+    chain_ref = FC.gn_silu_conv3x3_plain(x, gs, gb, wt, cb, groups=32,
+                                         eps=1e-5)
+    assert _rel(chain, chain_ref) <= BF16_BOUND
