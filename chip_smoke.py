@@ -29,7 +29,11 @@ Phases, each printing one JSON object per line:
                every shape of the sd2 and sdxl phases' model calls that
                no other row has (walked from the configs' spec trees,
                _c5_calls: K1 at d = 64, the refiner's 384..3072
-               channels), summed on a "c5_shapes" line
+               channels), summed on a "c5_shapes" line; and at the
+               adjust phase's (_adjust_shapes: DPT-Large's
+               self-attention [1, T, 16, 64] at T = 257, 577, 1025, and
+               the SD1.5 UNet's one-row shapes of cfg_sequential that no
+               other row has), summed on an "adjust_shapes" line
   4. pipeline  UnifiedPipeline on full-width SD1.5 (random weights from a
                seed): 512x512, 20 steps k_dpmpp_2m, CFG 7.5 (parallel),
                bf16, chunk_steps=10 with a stop_event, uint8 on the device.
@@ -94,6 +98,28 @@ Phases, each printing one JSON object per line:
                the ControlNet saved as a checkpoint: a hint image of
                384x640 (rescaled, lanczos3) at each priority over gRPC,
                within 1 level of the in-process image
+  5g. adjust   cfg_sequential on SD1.5 at batch 1 (two UNet calls of one
+               row a model call: launches 2 x 20 x 32 + 1 / 44 + 28, its
+               image within BF16_BOUND of the parallel one, both walls);
+               a chain of every pure adjustment at 512x512 on the card
+               against the same chain on the CPU (1e-4; canny, palletize
+               and quantize by the share of values they flip, the shuffle
+               with one flow exactly); then DPT-Large written to disk in
+               the Intel/dpt-large layout (random, seed 0, bf16: hidden
+               1024, 24 layers, 16 heads, ~343 M parameters) and ZoeD_N
+               over it (the trunk under core.core.), served by
+               server.serve as midas-depth and zoe-depth engines beside
+               SD1.5 with a hintset of SD1.5-width ControlNets (depth,
+               canny, color, shuffle): weights "real" at full width, each
+               estimate's launches (24 K1 at [1, 577, 16, 64]), wall and
+               map, the DPT's against its f32 on the CPU; then client.py's
+               own request builders (read from client.py with the port's
+               stubs) over gRPC: --mask_from_image_alpha (the kept pixels
+               equal the init image), --hint canny (the plain hinted
+               request), --hint_from_image depth / canny / color /
+               shuffle (launches 921 / 1308, depth + 24 K1; the depth one
+               within 1 level of the same request in-process), requests
+               to each depth engine; the plain and depth-hinted walls
   5e. sd2      an EngineManager engine on the sd21 preset (OpenCLIP-H,
                linear projections, v-prediction; random, seed 0, bf16):
                768x768, 20 steps k_dpmpp_2m, CFG 7.5, batch 1,
@@ -583,6 +609,42 @@ def _c5_shapes():
     return attns, convs
 
 
+# the depth engine's sizes: 384 (DPT-Large's native grid, the engine's
+# default) and the other square sizes an engine's `size:` may give it
+DPT_SIZES = (256, 384, 512)
+
+
+def _adjust_shapes():
+    """(K1 rows, K2a + K2b rows) of the adjust phase that phase 3's other
+    rows lack: DPT-Large's self-attention at each of DPT_SIZES (one image,
+    16 heads of 64, T = (size / 16)² + 1: 577 at 384, odd and no multiple
+    of K1's tiles), and SD1.5's UNet at one row (cfg_sequential runs each
+    CFG half as a call of its own): K1 rows (name, B, H, Tq, Tk, d), conv
+    rows (name, B, H=W, C, Co, eps)."""
+    from gyre_tpu_torch.models import configs
+
+    cn_attn, cn_conv = _controlnet_shapes()
+    c5_attn, c5_conv = _c5_shapes()
+    seen_attn = {r[1:6] for r in ATTN_SHAPES + MODE_ATTN_SHAPES + cn_attn +
+                 c5_attn}
+    seen_conv = {r[1:6] for r in CONV_SHAPES + MODE_CONV_SHAPES + cn_conv +
+                 c5_conv}
+    attns = [(f"dpt_self_{s}", 1, 16, (s // 16) ** 2 + 1,
+              (s // 16) ** 2 + 1, 64) for s in DPT_SIZES]
+    convs = []
+    a, c = _unet_call_shapes(configs.SD15.unet, 64, b=1)
+    for dims in a:
+        if dims not in seen_attn:
+            seen_attn.add(dims)
+            kind = "cross" if dims[3] == 77 else "self"
+            attns.append((f"seq_{kind}_{dims[2]}", *dims))
+    for dims in c:
+        if dims not in seen_conv:
+            seen_conv.add(dims)
+            convs.append((f"seq_{dims[1]}_{dims[2]}_{dims[3]}", *dims))
+    return attns, convs
+
+
 # K2a alone at two shapes of a batch-8 call, where its launch differs from
 # batch 1's: (name, B, H=W, C, eps, launches per batch-8 call). The UNet
 # runs 16 rows (8 images x 2 CFG rows), the VAE 8.
@@ -770,6 +832,13 @@ def phase_kernels():
         attn_row(*shape, 0, c5=True)
     for shape in c5_conv:
         conv_row(*shape, 0, c5=True)
+    # the adjust phase's shapes (the DPT's attention, SD1.5 at one row),
+    # tagged apart
+    adj_attn, adj_conv = _adjust_shapes()
+    for shape in adj_attn:
+        attn_row(*shape, 0, adjust=True)
+    for shape in adj_conv:
+        conv_row(*shape, 0, adjust=True)
     for name, b, hw, c, eps, launches in GN_BATCH8_SHAPES:
         # not in a batch-1 call: no launches of its per-call sums
         record_stats(name, b, hw, c, eps, 0,
@@ -1981,6 +2050,417 @@ def phase_hints():
         raise AssertionError("hints: " + "; ".join(failed))
 
 
+# ------------------------------------------ adjustments, depth engines
+
+
+def _client_builders():
+    """client.py's own request builders (build_request and its helpers),
+    read from the repo's client.py with the port's protocol stubs in place
+    of the JAX package's, which client.py imports (and this script may
+    not): its top-level imports of the JAX package are dropped from the
+    parsed source, and ``pb`` and ``PROTO_SAMPLERS`` given instead."""
+    import ast
+    import os
+
+    from gyre_tpu_torch.pipeline.samplers import PROTO_SAMPLERS
+    from gyre_tpu_torch.services.generate import pb
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "client.py")
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    tree.body = [n for n in tree.body if not (
+        isinstance(n, ast.ImportFrom) and (n.module or "").split(".")[0] in
+        ("gyre_tpu", "__future__"))]
+    ns = {"__name__": "smoke_client", "pb": pb,
+          "PROTO_SAMPLERS": PROTO_SAMPLERS}
+    exec(compile(tree, path, "exec"), ns)
+    return ns
+
+
+def _client_request(ns, argv):
+    """The Request client.py's main builds for ``argv`` (its
+    build_request, captured before anything is sent)."""
+    class Built(Exception):
+        pass
+
+    build = ns["build_request"]
+
+    def capture(args):
+        raise Built(build(args))
+
+    ns["build_request"] = capture
+    try:
+        ns["main"](argv)
+    except Built as b:
+        return b.args[0]
+    finally:
+        ns["build_request"] = build
+    raise AssertionError("client.py built no request")
+
+
+ADJUST_SEQ_ROUNDS = 3
+
+
+def _device_profile(fn, top: int = 8):
+    """One traced fn(): its wall, the card's busy time (the sum of its
+    device operations), their count and the ``top`` operations by device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            slot = by_name.setdefault(e.name[:60], [0.0, 0])
+            slot[0] += e.time_range.elapsed_us() / 1e3
+            slot[1] += 1
+    return {"traced_wall_s": wall,
+            "device_busy_s": sum(v[0] for v in by_name.values()) / 1e3,
+            "device_ops": sum(v[1] for v in by_name.values()),
+            "top_device_ms": [(n, round(v[0], 3), v[1]) for n, v in sorted(
+                by_name.items(), key=lambda kv: -kv[1][0])[:top]]}
+
+
+def phase_adjust():
+    """Adjustment chains, the DPT-Large and ZoeDepth engines and
+    cfg_sequential on full-width SD1.5 (module docstring, 5g)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gyre_tpu_torch import _build
+    from gyre_tpu_torch.models import configs, dpt, load, zoedepth
+    from gyre_tpu_torch.models.modelset import random_preset
+    from gyre_tpu_torch.ops import images as I
+    from gyre_tpu_torch.pipeline.unified import UnifiedPipeline
+    from gyre_tpu_torch.services import adjustments
+    from gyre_tpu_torch.services.generate import pb
+
+    failed = []
+    ucfg = configs.SD15.unet
+    k1_dpt = dpt.DPT_LARGE.layers           # one K1 launch a block
+    size = REQUEST["height"]
+    img_np = _mode_inputs(size)[0]                       # [1,H,W,3]
+    yy, xx = np.mgrid[0:size, 0:size]
+    alpha = np.ones((size, size, 1), np.float32)
+    alpha[96:288, 160:352] = 0.0                         # the hole
+    rgba = np.concatenate([img_np[0], alpha], -1)
+
+    # --- cfg_sequential against parallel, one pipeline, batch 1
+    pipe = UnifiedPipeline(random_preset("sd15", seed=0, device="cuda"),
+                           compute_dtype=torch.bfloat16)
+    kw = dict(REQUEST, seeds=[41])
+    with _Counted() as counted:
+        par = pipe(**kw)                                      # warm-up
+        seq = counted.run("adjust", "cfg_sequential",
+                          lambda: pipe(**kw, cfg_sequential=True), {
+                              "flash_attention": 32 * 2 * STEPS + 1,
+                              "gn_stats": 44 * 2 * STEPS + 28,
+                              "gn_silu_conv3x3": 44 * 2 * STEPS + 28},
+                          (2 * STEPS, 0, 1), size, failed)
+    par = pipe(**kw)
+    walls = {"parallel": [], "sequential": []}
+    for r in range(ADJUST_SEQ_ROUNDS):
+        order = ("parallel", "sequential") if r % 2 == 0 else \
+            ("sequential", "parallel")
+        for name in order:
+            walls[name].append(_median_wall(lambda: pipe(
+                **kw, cfg_sequential=name == "sequential"), 1)[0])
+    abs_err, rel = _errors(seq, par)
+    emit({"phase": "adjust", "check": "cfg_sequential",
+          "max_abs_diff": abs_err, "mean_abs_diff": float(
+              (seq.float() - par.float()).abs().mean()),
+          "bound": BF16_BOUND, "walls_s": walls,
+          "wall_s": {k: sorted(v)[len(v) // 2] for k, v in walls.items()}})
+    if abs_err > BF16_BOUND:
+        failed.append(f"cfg_sequential: {abs_err} off the parallel image")
+    del pipe, par, seq
+    torch.cuda.empty_cache()
+
+    # --- a chain of every pure adjustment at 512², card against CPU
+    def chain(spec):
+        req = pb.Request()
+        adj = req.prompt.add().artifact.adjustments
+        for field, attrs in spec:
+            a = adj.add()
+            getattr(a, field).SetInParent()
+            for k, v in attrs.items():
+                if isinstance(v, list):
+                    getattr(getattr(a, field), k).extend(v)
+                else:
+                    setattr(getattr(a, field), k, v)
+        return adj
+
+    smooth = chain([
+        ("levels", {"input_low": 0.05, "input_high": 0.9}),
+        ("blur", {"sigma": 2.0}),
+        ("blur", {"sigma": 8.0, "direction": pb.DIRECTION_UP}),
+        ("invert", {}),
+        ("channels", {"r": pb.CHANNEL_B, "g": pb.CHANNEL_R,
+                      "b": pb.CHANNEL_G, "a": pb.CHANNEL_ONE}),
+        ("rescale", {"height": 384, "width": 640,
+                     "mode": pb.RESCALE_CONTAIN_REPLICATE}),
+        ("autoscale", {"height": size, "width": size}),
+        ("crop", {"top": 32, "left": 16, "height": 448, "width": 480})])
+    thresholded = {
+        "canny_edge": chain([("canny_edge", {"low_threshold": 0.05,
+                                             "high_threshold": 0.2})]),
+        "palletize": chain([("palletize", {"colours": 8})]),
+        "quantize": chain([("quantize", {"threshold": [0.45]})])}
+    x_cpu = torch.from_numpy(img_np)
+    ref = adjustments.apply_image_adjustment(x_cpu, smooth)
+    got = adjustments.apply_image_adjustment(x_cpu.cuda(), smooth)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        adjustments.apply_image_adjustment(x_cpu.cuda(), smooth)
+    torch.cuda.synchronize()
+    chain_ms = (time.perf_counter() - t0) / 5 * 1e3
+    err = float((got.cpu() - ref).abs().max())
+    line = {"phase": "adjust", "check": "pure_chain_card_vs_cpu",
+            "shape": list(got.shape), "max_abs_diff": err, "bound": 1e-4,
+            "wall_ms": chain_ms, "flipped": {}}
+    if err > 1e-4 or list(got.shape) != [1, 448, 480, 4]:
+        failed.append(f"pure chain: {err} off the CPU's")
+    # a threshold flips only where its input lies within rounding of it:
+    # the share of values a level apart (more than 1e-5: a division by a
+    # scalar rounds differently on the card), on the CPU chain's output
+    for name, adj in thresholded.items():
+        a = adjustments.apply_image_adjustment(ref, adj)
+        b = adjustments.apply_image_adjustment(ref.cuda(), adj).cpu()
+        share = float(((a - b).abs() > 1e-5).float().mean())
+        line["flipped"][name] = share
+        if share > 1e-3:
+            failed.append(f"{name}: {share} of the values flipped")
+    flow = I.shuffle_flow(ref.shape, torch.Generator().manual_seed(7))
+    same = bool(torch.equal(I.shuffle(ref, flow),
+                            I.shuffle(ref.cuda(), flow).cpu()))
+    line["shuffle_equal"] = same
+    if not same:
+        failed.append("shuffle: card and CPU move pixels apart")
+    emit(line)
+
+    # --- checkpoints: DPT-Large (Intel/dpt-large layout) and ZoeD_N over
+    # it (the trunk under core.core.), random from seed 0, bf16 on disk
+    tmp = tempfile.mkdtemp(prefix="gyre-smoke-depth-")
+    manager = serving = channel = None
+    try:
+        t0 = time.perf_counter()
+        model = dpt.random_dpt(dpt.DPT_LARGE, seed=0, dtype=torch.bfloat16,
+                               device="cpu")
+        state = {k: v.to(torch.bfloat16)
+                 for k, v in dpt.state_dict_hf(model).items()}
+        n_params = sum(v.numel() for v in state.values())
+        del model
+        dpt_path = os.path.join(tmp, "dpt-large.safetensors")
+        load.write_safetensors(dpt_path, state)
+        zstate = {f"core.core.{k}": v for k, v in state.items()}
+        zstate.update(zoedepth.state_dict_published(zoedepth.random_head(
+            zoedepth.ZOE_N, seed=0, device="cpu")))
+        zoe_path = os.path.join(tmp, "zoe.safetensors")
+        load.write_safetensors(zoe_path, zstate)
+        del state, zstate
+        cn_path = os.path.join(tmp, "cn.safetensors")
+        load.write_safetensors(cn_path, load.export_controlnet_state(
+            _live_controlnet(ucfg, 1), ucfg))
+        emit({"phase": "adjust", "checkpoints_s": time.perf_counter() - t0,
+              "dpt_params": n_params,
+              "dpt_bytes": os.path.getsize(dpt_path),
+              "zoe_bytes": os.path.getsize(zoe_path)})
+        if not 340e6 < n_params < 346e6:
+            failed.append(f"DPT-Large has {n_params} parameters")
+
+        types = ("depth", "canny", "color", "shuffle")
+        manager, serving, tmp2 = _serve_yaml(
+            "- {id: sd15, default: true, hintset: hs, model: {preset: "
+            "sd15, seed: 0}}\n"
+            f"- {{id: midas-depth, task: depth, model: {dpt_path}}}\n"
+            f"- {{id: zoe-depth, task: depth, kind: zoedepth, model: "
+            f"{zoe_path}}}\n"
+            f"- {{model_id: smoke-cn, model: {cn_path}}}\n"
+            "- {hintset_id: hs, " + ", ".join(
+                f"controlnet/{t}: {{aliases: [{t}], model: '@smoke-cn'}}"
+                for t in types) + "}\n")
+        shutil.rmtree(tmp2, ignore_errors=True)
+        ready = {s["id"]: s["ready"] for s in manager.status()}
+        t0 = time.perf_counter()
+        runs = {eid: manager.task_pipeline("depth", eid)
+                for eid in ("midas-depth", "zoe-depth")}
+        load_s = time.perf_counter() - t0
+        kinds = {s["id"]: s["weights"] for s in manager.status()}
+        trunk = runs["midas-depth"].models[0]
+        emit({"phase": "adjust", "ready": ready, "weights": kinds,
+              "depth_load_s": load_s, "dpt_config": str(trunk.cfg),
+              "dpt_dtype": str(trunk.dtype), "size": runs["midas-depth"].size})
+        if not (ready["midas-depth"] and ready["zoe-depth"]):
+            failed.append(f"depth engines not ready: {ready}")
+        if kinds["midas-depth"] != "real" or kinds["zoe-depth"] != "real":
+            failed.append(f"depth weights {kinds}, expected real")
+        if trunk.cfg != dpt.DPT_LARGE or \
+                runs["zoe-depth"].models[1].cfg != zoedepth.ZOE_N:
+            failed.append("the depth engines are not DPT-Large / ZoeD_N")
+
+        # the estimates, on the card: launches (24 K1 at [1, 577, 16, 64],
+        # no K2), walls, the map; the DPT's against its f32 on the CPU
+        x = torch.from_numpy(img_np).cuda()
+        for eid, run in runs.items():
+            run(x)                                       # warm-up
+            _build.reset_launches()
+            out = run(x)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in _build.launches.items() if v}
+            wall = _median_wall(lambda: run(x), 5)
+            expect = {"flash_attention": k1_dpt}
+            line = {"phase": "adjust", "estimate": eid, "wall_s": wall[0],
+                    "launches": launches, "expected_launches": expect,
+                    "shape": list(out.shape),
+                    "finite": bool(out.isfinite().all()),
+                    "min": float(out.min()), "max": float(out.max()),
+                    "std": float(out.float().std()),
+                    **_device_profile(lambda: run(x))}
+            if eid == "midas-depth":
+                cpu, _ = dpt.load_dpt(dpt.state_dict_hf(trunk),
+                                      dtype=torch.float32, device="cpu")
+                with torch.inference_mode():
+                    f32 = dpt.estimate_depth(cpu, torch.from_numpy(img_np),
+                                             run.size)
+                line["max_abs_diff_to_f32_cpu"] = float(
+                    (out[..., :1].cpu() - f32).abs().max())
+                line["mean_abs_diff_to_f32_cpu"] = float(
+                    (out[..., :1].cpu() - f32).abs().mean())
+                del cpu
+                if line["max_abs_diff_to_f32_cpu"] > 0.1:
+                    failed.append(f"DPT bf16 on the card "
+                                  f"{line['max_abs_diff_to_f32_cpu']} off "
+                                  "its f32 on the CPU")
+            emit(line)
+            failed.extend(f"estimate {eid}: {what}" for what, bad in (
+                (f"launches {launches} != {expect}", launches != expect),
+                ("shape", line["shape"] != [1, size, size, 3]),
+                ("not finite", not line["finite"]),
+                ("out of [0, 1]", line["min"] < 0 or line["max"] > 1 + 1e-6),
+                ("flat map", line["std"] < 0.01)) if bad)
+
+        # --- client.py's requests over gRPC
+        ns = _client_builders()
+        channel, generate = _grpc_generate(serving.grpc_port)
+        init_path = os.path.join(tmp, "init.png")
+        with open(init_path, "wb") as fh:
+            fh.write(I.encode_png(rgba))
+        hint_path = os.path.join(tmp, "hint.png")
+        with open(hint_path, "wb") as fh:
+            fh.write(I.encode_png(img_np[0]))
+        base = [REQUEST["prompt"], "-n", REQUEST["negative_prompt"],
+                "--host", "localhost:1", "-W", str(size), "-H", str(size),
+                "--steps", str(STEPS), "-s", "k_dpmpp_2m", "-S", "51"]
+        cases = {
+            "mask_from_image_alpha": ["-e", "sd15", "-i", init_path,
+                                      "--mask_from_image_alpha"],
+            "plain_hint": ["-e", "sd15", "--hint", f"canny:{hint_path}"],
+            **{f"hint_from_image_{t}": ["-e", "sd15", "--hint_from_image",
+                                        f"{t}:{hint_path}"] for t in types},
+            "midas_engine": ["-e", "midas-depth", "-i", hint_path],
+            "zoe_engine": ["-e", "zoe-depth", "-i", hint_path]}
+        hinted = {"flash_attention": 921, "gn_stats": 1308,
+                  "gn_silu_conv3x3": 1308}
+        expect = {name: hinted for name in cases}
+        expect["mask_from_image_alpha"] = {
+            "flash_attention": 32 * STEPS + 2, "gn_stats": 44 * STEPS + 48,
+            "gn_silu_conv3x3": 44 * STEPS + 48}        # + a VAE encode
+        expect["hint_from_image_depth"] = dict(
+            hinted, flash_attention=921 + k1_dpt)
+        expect["midas_engine"] = expect["zoe_engine"] = {
+            "flash_attention": k1_dpt}
+        images = {}
+        for name, argv in cases.items():
+            req = _client_request(ns, base + argv)
+            generate(req)                                # warm-up
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            images[name] = got = generate(req)
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in _build.launches.items() if v}
+            emit({"phase": "adjust", "grpc": name, "wall_s": wall,
+                  "launches": launches, "expected_launches": expect[name],
+                  "shape": list(got.shape),
+                  "adjustments": [len(p.artifact.adjustments)
+                                  for p in req.prompt
+                                  if p.WhichOneof("prompt") == "artifact"]})
+            failed.extend(f"gRPC {name}: {what}" for what, bad in (
+                (f"launches {launches} != {expect[name]}",
+                 launches != expect[name]),
+                (f"shape {got.shape}", got.shape != (size, size, 3)),
+                ("constant image", got.min() == got.max())) if bad)
+        # the hinted requests' walls, paired (the plain ControlNet request
+        # of the hints phase, then the depth-hinted one), median of 3
+        hint_walls = {"plain_hint": [], "hint_from_image_depth": []}
+        for r in range(3):
+            for name in (list(hint_walls) if r % 2 == 0 else
+                         list(hint_walls)[::-1]):
+                req = _client_request(ns, base + cases[name])
+                t0 = time.perf_counter()
+                generate(req)
+                hint_walls[name].append(time.perf_counter() - t0)
+        emit({"phase": "adjust", "check": "hinted_walls",
+              "walls_s": hint_walls,
+              "wall_s": {k: sorted(v)[1] for k, v in hint_walls.items()}})
+        # the kept pixels of the alpha-masked request are the init image's
+        mask = adjustments.apply_image_adjustment(
+            torch.from_numpy(rgba[None]), _client_request(
+                ns, base + cases["mask_from_image_alpha"]).prompt[-1]
+            .artifact.adjustments).numpy()[..., :1]
+        keep = _kept_pixels(mask)
+        init_u8 = np.round(img_np[0] * 255).astype(np.uint8)
+        kept_equal = bool((images["mask_from_image_alpha"][keep] ==
+                           init_u8[keep]).all())
+        emit({"phase": "adjust", "check": "alpha_mask_kept_pixels",
+              "kept": int(keep.sum()), "equal_to_init": kept_equal,
+              "regenerated_differs": bool((images["mask_from_image_alpha"][
+                  ~keep] != init_u8[~keep]).any())})
+        if not kept_equal or keep.all() or not keep.any():
+            failed.append("alpha mask: the kept pixels are not the init's")
+        # the depth-hinted image against the same request in-process, its
+        # hint the DPT engine's map of the decoded upload
+        hint = runs["midas-depth"](torch.from_numpy(
+            I.decode_png(I.encode_png(img_np[0]))).cuda())
+        want = manager.dispatch_view("sd15").pipe(**dict(
+            REQUEST, seeds=[51], output_dtype="uint8", chunk_steps=10,
+            stop_event=threading.Event(), hints=[{
+                "params": manager.hint_model("depth", "sd15")["params"],
+                "kind": "controlnet", "image": hint.cpu().numpy(),
+                "scale": 1.0}]))[0].cpu().numpy()
+        diff = int(np.abs(images["hint_from_image_depth"].astype(int) -
+                          want.astype(int)).max())
+        emit({"phase": "adjust", "check": "depth_hint_in_process",
+              "max_diff": diff})
+        if diff > 1:
+            failed.append(f"depth hint: {diff} levels off in-process")
+        if (images["hint_from_image_depth"] ==
+                images["hint_from_image_canny"]).all():
+            failed.append("depth and canny hints gave one image")
+    finally:
+        if channel is not None:
+            channel.close()
+        if serving is not None:
+            serving.stop(0)
+        if manager is not None:
+            manager.dispatcher.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("adjust: " + "; ".join(failed))
+
+
 
 # ------------------------------------------------------------- SD2, SDXL
 
@@ -2928,12 +3408,12 @@ def main() -> int:
                                  "not add up to EXPECTED_LAUNCHES")
     kernels = phase_kernels()
     launches = phase_pipeline()
-    # what each phase leaves allocated on the card, once its engines are
-    # collected: an EngineManager is in a reference cycle (its hintsets hold
-    # its bound loader), so only the cycle collector frees its weights
+    # what each phase leaves allocated on the card, once collected (a
+    # dropped EngineManager frees its engines at once; the collection guards
+    # against a cycle that would keep one)
     for phase in (phase_samplers, phase_modes, phase_adapters, phase_hints,
-                  phase_sd2, phase_sdxl, phase_serve, phase_http,
-                  phase_weights):
+                  phase_adjust, phase_sd2, phase_sdxl, phase_serve,
+                  phase_http, phase_weights):
         phase()
         gc.collect()
         torch.cuda.empty_cache()
@@ -2954,10 +3434,12 @@ def main() -> int:
                    for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
                 "bound_by": max(by, key=by.get)}
 
-    rows, mode_rows, cn_rows, c5_rows = [], [], [], []
+    rows, mode_rows, cn_rows, c5_rows, adj_rows = [], [], [], [], []
     for name, source, replaces in KERNEL_TABLE:
         rs = [r for r in kernels[name] if not r.get("modes") and
-              not r.get("controlnet") and not r.get("c5")]
+              not r.get("controlnet") and not r.get("c5") and
+              not r.get("adjust")]
+        adj_rs = [r for r in kernels[name] if r.get("adjust")]
         mode_rs = [r for r in kernels[name] if r.get("modes")]
         cn_rs = [r for r in kernels[name] if r.get("controlnet")]
         c5_rs = [r for r in kernels[name] if r.get("c5")]
@@ -2974,9 +3456,13 @@ def main() -> int:
                         **summary(cn_rs)})
         c5_rows.append({"name": name, "shapes": len(c5_rs),
                         **summary(c5_rs)})
+        if adj_rs:                  # K2a/K2b rows only where a shape is new
+            adj_rows.append({"name": name, "shapes": len(adj_rs),
+                             **summary(adj_rs)})
     emit({"mode_shapes": mode_rows})
     emit({"controlnet_shapes": cn_rows})
     emit({"c5_shapes": c5_rows})
+    emit({"adjust_shapes": adj_rows})
     emit({"c5_paths": {name: _path_sums(kernels, parts)
                        for name, parts in _c5_paths().items()}})
     emit({"kernels": rows})

@@ -33,10 +33,18 @@ UNet under SD 1.5, say). Every generate family of models/configs.py is
 served: SD1.x, SD2 (v-prediction at 768²), SDXL and its refiner (1024²),
 each at its natural size (``natural_size``: the config's ``sample_size``
 latents), which the servicer and the prewarm take where a request sets
-none. Not ported, and raising NotImplementedError with the ROADMAP item
-when an engine or request needs them: the CLIP model for guidance (C6),
-task engines (D), and the upscalers' class and scale-shift time
-conditioning of a UNet (D4).
+none.
+
+Task engines load at first use (``task_pipeline``): a ``depth`` engine of
+kind ``depth``/``midas``/``dpt`` is a MiDaS DPT (models/dpt.py), of kind
+``zoe``/``zoedepth`` ZoeDepth's head over a DPT trunk (models/zoedepth.py),
+each in the manager's compute dtype (its head in f32), from the engine's
+``model:`` checkpoint (``spec_state_dict``) or, with no resolvable
+weights, random at ``DPT_TEST`` as in the JAX package. Not ported, and
+raising NotImplementedError with the ROADMAP item when an engine or
+request needs them: the other task engines (hinters D3, upscalers and face
+restoration D4), the CLIP model for guidance (C6), and the upscalers'
+class and scale-shift time conditioning of a UNet (D4).
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ import dataclasses
 import logging
 import threading
 import time
+import weakref
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 
@@ -144,9 +153,13 @@ class EngineManager:
         self.compute_dtype = compute_dtype
         self.batch_max = batch_max
         self._weight_resolver = weight_resolver
+        # the loader through a weak reference: a bound method would make a
+        # cycle that keeps a dropped manager's engines until the cycle
+        # collector runs
+        loader = weakref.WeakMethod(self.load_model_entry)
         self.hintsets = HintsetManager(
             hintset_entries, configs.SD15.unet, compute_dtype=compute_dtype,
-            device=self.device, model_loader=self.load_model_entry)
+            device=self.device, model_loader=lambda ref: loader()(ref))
         # url artifacts resolve through it (server.serve sets it)
         self.resources = None
         self._modelsets: dict[str, ModelSet] = {}
@@ -154,6 +167,9 @@ class EngineManager:
         self._views: dict[str, DispatchView] = {}
         # adapted views (LoRA/TI folded in), oldest first
         self._adapted: dict[tuple, DispatchView] = {}
+        # task pipelines by engine id, built at first use
+        self._tasks: dict[str, object] = {}
+        self._loaded = False
         self._probes: dict[tuple, float] = {}
         # per-engine weight provenance for status(): "real" (checkpoint
         # loaded), "random" (random weights: loud, so no engine silently
@@ -181,6 +197,7 @@ class EngineManager:
             logger.info("engine %s loaded (%.1f MB params, %s weights)",
                         spec.id, ms.param_bytes() / 1e6,
                         self._weights_kind.get(spec.id, "pending"))
+        self._loaded = True
 
     @property
     def weight_resolver(self):
@@ -192,7 +209,8 @@ class EngineManager:
 
     def _build_modelset(self, spec: EngineSpec) -> ModelSet:
         if spec.task != "generate":
-            _unported(f"engine {spec.id}: task {spec.task!r}", "D")
+            _unported(f"engine {spec.id}: a ModelSet of task {spec.task!r}",
+                      "D")
         model = spec.model
         if isinstance(model, dict) and model.get("mix"):
             # model mixing: merge other engines' weights (reference
@@ -409,6 +427,118 @@ class EngineManager:
                            hint_type)
         return model
 
+    # ------------------------------------------------------- task engines
+
+    def task_pipeline(self, task: str, engine_id: str | None = None):
+        """The pipeline of the first enabled engine of ``task`` (that
+        engine's when ``engine_id`` is given), built at first use: a
+        callable image [B,H,W,C] in [0,1] -> [B,H,W,3] on the manager's
+        device; None when no such engine is configured. The task kinds the
+        port has no model for yet raise NotImplementedError naming their
+        ROADMAP item."""
+        task = {"upscale": "upscaler"}.get(task, task)
+        spec = next((s for s in self.specs
+                     if s.enabled and s.task == task and
+                     (engine_id is None or s.id == engine_id)), None)
+        if spec is None:
+            return None
+        if spec.id not in self._tasks:
+            with self._load_lock:
+                if spec.id not in self._tasks:
+                    self._tasks[spec.id] = self._build_task_pipeline(spec)
+        return self._tasks[spec.id]
+
+    def spec_state_dict(self, spec) -> dict | None:
+        """The engine's ``model:`` (a "@model-id" registry reference, a
+        repository or a local path) as a loaded state dict; None (weights
+        "random") when it names none or it does not resolve, so the task
+        model random-inits."""
+        model = spec.model
+        if not isinstance(model, str) or not model or \
+                model.startswith("preset/"):
+            self._weights_kind[spec.id] = "random"
+            return None
+        try:
+            state = self.load_model_entry(model)[0]
+        except Exception as e:  # noqa: BLE001 - logged, random weights
+            logger.warning("engine %s: weights %s unavailable (%s); "
+                           "random-init", spec.id, model, e)
+            self._weights_kind[spec.id] = "random"
+            return None
+        self._weights_kind[spec.id] = "real"
+        return state
+
+    def _build_task_pipeline(self, spec: EngineSpec):
+        if spec.task in ("depth", "hinter", "edge", "segmentation",
+                         "background_removal", "pose", "normal"):
+            return self._build_hinter(spec)
+        if spec.task in ("upscaler", "face_restore"):
+            _unported(f"engine {spec.id}: task {spec.task!r}", "D4")
+        return None
+
+    def _build_hinter(self, spec: EngineSpec):
+        """A depth engine's pipeline: MiDaS DPT, or ZoeDepth's head over
+        a DPT trunk. A checkpoint that resolves and does not load raises."""
+        from ..models import dpt
+        from ..models import zoedepth as zoe
+
+        kind = spec.params.get("kind") or spec.task
+        seed = int(spec.params.get("seed", 0))
+        dtype, device = self.compute_dtype, self.device
+        if kind in ("zoe", "zoedepth"):
+            state = self.spec_state_dict(spec)
+            trunk_cfg = dpt.DPT_TEST
+            trunk = head = None
+            if state is not None:
+                head, zcfg = zoe.load_zoe_head(state, device=device)
+                core = {k.split("core.core.", 1)[1]: v
+                        for k, v in state.items() if "core.core." in k}
+                if core:
+                    trunk, trunk_cfg = dpt.load_dpt(core, dtype=dtype,
+                                                    device=device)
+            if head is None:
+                zcfg = dataclasses.replace(
+                    zoe.ZOE_TEST, btlnck_features=trunk_cfg.fusion,
+                    num_out_features=trunk_cfg.fusion)
+                head = zoe.random_head(zcfg, seed, device=device)
+            if trunk is None:
+                # a head-only checkpoint: its trunk is random
+                trunk = dpt.random_dpt(trunk_cfg, seed + 1, dtype=dtype,
+                                       device=device)
+                self._weights_kind[spec.id] = "random"
+            size = int(spec.params.get("size",
+                                       trunk_cfg.grid * trunk_cfg.patch))
+
+            models = (trunk, head)
+
+            def estimate(img):
+                return zoe.estimate_depth_hint(trunk, head, img, size)
+        elif kind in ("depth", "midas", "dpt"):
+            state = self.spec_state_dict(spec)
+            if state is not None:
+                model, cfg = dpt.load_dpt(state, dtype=dtype, device=device)
+                size = int(spec.params.get("size", cfg.grid * cfg.patch))
+            else:
+                cfg = dpt.DPT_TEST
+                model = dpt.random_dpt(cfg, seed, dtype=dtype, device=device)
+                size = cfg.grid * cfg.patch
+
+            models = (model,)
+
+            def estimate(img):
+                return dpt.estimate_depth(model, img, size)
+        else:
+            _unported(f"engine {spec.id}: task {spec.task!r} (kind "
+                      f"{kind!r})", "D3")
+
+        def run(img):
+            img = torch.as_tensor(img).to(device, torch.float32)
+            with torch.inference_mode():
+                return estimate(img).repeat(1, 1, 1, 3)
+
+        run.models, run.size = models, size     # what it runs, at what size
+        return run
+
     def load_model_entry(self, ref: str):
         """'@model-id' registry reference or direct path/repo -> (state
         dict, config entry, resolved path). The entry's model/subfolder/
@@ -580,13 +710,17 @@ class EngineManager:
     # ------------------------------------------------------------- status
 
     def engine_ready(self, spec) -> bool:
-        """Ready when its weights are resident and the port has a path for
-        it: a generate engine of any family (SD1.x, SD2, SDXL and its
-        refiner: a UNet with class or scale-shift conditioning does not
-        build), its UNet taking 4 input channels (txt2img and every mode),
-        9 (inpainting) or 5 (depth2img). A task engine
-        needs its pipeline (ROADMAP D) and is not ready, since each of its
-        requests would answer UNIMPLEMENTED."""
+        """Ready when the port has a path for it: a generate engine of any
+        family (SD1.x, SD2, SDXL and its refiner: a UNet with class or
+        scale-shift conditioning does not build) once its weights are
+        resident, its UNet taking 4 input channels (txt2img and every
+        mode), 9 (inpainting) or 5 (depth2img); a depth engine (DPT or
+        ZoeDepth), which loads at first use, once the engines have loaded,
+        as in the JAX package. Other task engines (ROADMAP D3, D4) are not
+        ready, since each of their requests would answer UNIMPLEMENTED."""
+        if spec.task == "depth":
+            return self._loaded and spec.params.get("kind", "depth") in (
+                "depth", "midas", "dpt", "zoe", "zoedepth")
         ms = self._modelsets.get(spec.id)
         if spec.task != "generate" or ms is None:
             return False

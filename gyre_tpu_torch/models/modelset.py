@@ -269,3 +269,61 @@ def from_jax_params(unet_params, vae_params, text_params,
                     schedule=sched.scaled_linear_schedule(
                         prediction_type=config.prediction_type),
                     device=device, id=engine_id)
+
+
+def _module_from_jax(model, params, name: str):
+    """Fill an nn.Module whose parameter names follow a JAX params tree
+    (``blocks.3.q.weight`` from ``params["blocks"][3]["q"]["w"]``) leaf by
+    leaf, in torch's layouts: linear (in, out) -> (out, in), conv HWIO ->
+    OIHW, transposed conv (kh, kw, in, out) -> (in, out, kh, kw). A leaf
+    the module lacks, or one it has that the tree lacks, raises."""
+    import torch.nn as nn
+
+    from . import dpt
+
+    suffix = {"weight": ("w", "g"), "bias": ("b",)}
+    consumed = set()
+
+    def fetch(pname):
+        *mods, kind = pname.split(".")
+        owner = model.get_submodule(".".join(mods)) if mods else model
+        for leaf in suffix.get(kind, (kind,)) if mods else (kind,):
+            path = tuple(int(p) if p.isdigit() else p for p in mods) + (leaf,)
+            try:
+                a = np.array(_get(params, path), dtype=np.float32)
+            except (KeyError, IndexError, TypeError):
+                continue
+            consumed.add(path)
+            if kind == "weight" and isinstance(owner, nn.Linear):
+                return a.T
+            if kind == "weight" and isinstance(owner, nn.ConvTranspose2d):
+                return a.transpose(2, 3, 0, 1)
+            if kind == "weight" and isinstance(owner, nn.Conv2d):
+                return a.transpose(3, 2, 0, 1)
+            return a
+        raise KeyError(pname)
+
+    dpt.load_state(model, fetch, name)
+    left = [p for p in _jax_leaf_paths(params) if p not in consumed]
+    if left:
+        raise ValueError(f"{name}: JAX params leaves the port does not "
+                         f"consume: {['/'.join(map(str, p)) for p in left]}")
+    return model
+
+
+def dpt_from_jax(params, cfg, *, dtype=torch.float32, device="cuda"):
+    """The JAX package's DPT params tree (numpy) at ``cfg`` -> the port's
+    DPT in ``dtype`` (its head in f32), as strict as from_jax_params."""
+    from . import dpt
+
+    return _module_from_jax(dpt.DPT(cfg), params, "dpt").to_compute(
+        dtype, torch.device(device))
+
+
+def zoe_head_from_jax(params, cfg, *, device="cuda"):
+    """The JAX package's ZoeDepth head params tree (numpy) -> the port's
+    ZoeHead in f32, as strict as from_jax_params."""
+    from . import zoedepth
+
+    return _module_from_jax(zoedepth.ZoeHead(cfg), params,
+                            "zoedepth head").to(torch.device(device))

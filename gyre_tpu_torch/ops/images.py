@@ -9,12 +9,18 @@ is not installed those three raise NotImplementedError naming it, so a
 WebP answer or an uploaded image answers UNIMPLEMENTED while PNG answers
 go on working.
 
-The image tensor ops the generation modes need, on [B,H,W,C] tensors:
-``normalise``, ``gaussian_blur`` (edge-replicated, separable),
-``to_grayscale`` (depth2img's fallback depth map) and ``match_histograms``
-(the inpaint outmask composite), and ``rescale`` (a hint image to the
-request's size, lanczos3 through ops/resize.py). The other tensor ops of
-the JAX file belong to the adjustments (ROADMAP D1).
+The image tensor ops, on [B,H,W,C] float tensors in [0,1], each following
+the JAX file's formula (its padding, its kernels, no antialiasing where it
+has none): ``normalise``, ``gaussian_blur`` (edge-replicated, separable),
+``to_grayscale``, ``match_histograms`` (the inpaint outmask composite),
+``rescale`` (strict / cover / contain, lanczos3 through ops/resize.py),
+and the adjustments' ops (services/adjustments.py): ``levels``,
+``invert``, ``channelmap``, ``directionalblur``, ``crop``, ``autoscale``,
+``sobel_edges``, ``canny_edge``, ``normalmap_from_depthmap``,
+``palletize``, ``quantize``, ``shuffle`` (its flow drawn apart by
+``shuffle_flow``, so that a test can give it the JAX package's),
+``infill``, ``frequency_blend``, ``box_sum``, ``guided_filter`` and
+``tv_denoise``.
 """
 
 from __future__ import annotations
@@ -183,16 +189,283 @@ def match_histograms(source, reference, mask=None):
     return out
 
 
-def rescale(img, height: int, width: int):
-    """img [B,H,W,C] to (height, width), lanczos3 (ops/resize.py): scaled
-    to cover the target, then its centre cropped (the JAX package's
-    ``fit="cover"``; its other fits belong to the adjustments, ROADMAP
-    D1)."""
+def levels(img, in_low: float = 0.0, in_high: float = 1.0,
+           out_low: float = 0.0, out_high: float = 1.0):
+    x = ((img - in_low) / max(in_high - in_low, 1e-8)).clamp(0.0, 1.0)
+    return x * (out_high - out_low) + out_low
+
+
+def invert(img):
+    return 1.0 - img
+
+
+CHANNEL_INDEX = {"r": 0, "g": 1, "b": 2, "a": 3}
+
+
+def channelmap(img, src: str, dst: str):
+    """Channel ``src`` ('r', 'g', 'b', 'a', 'zero' or 'one') copied into
+    ``dst``; channels up to ``dst`` that the image lacks are added as
+    ones."""
+    c = img.shape[-1]
+    if src == "zero":
+        col = torch.zeros_like(img[..., :1])
+    elif src == "one":
+        col = torch.ones_like(img[..., :1])
+    else:
+        col = img[..., CHANNEL_INDEX[src]:CHANNEL_INDEX[src] + 1]
+    d = CHANNEL_INDEX[dst]
+    if d >= c:
+        img = torch.cat([img] + [torch.ones_like(img[..., :1])] *
+                        (d + 1 - c), dim=-1)
+    else:
+        img = img.clone()
+    img[..., d:d + 1] = col
+    return img
+
+
+def directionalblur(img, sigma: float, direction: str = "up"):
+    """One-sided vertical gaussian blur (the mask feathering of the
+    protocol's default mask post-adjustment): "up" keeps the kernel's lower
+    half and takes the maximum with the image, "down" its upper half."""
+    radius = max(1, int(3 * sigma + 0.5))
+    k = _gaussian_kernel1d(sigma, radius)
+    if direction == "up":
+        k[:radius] = 0.0
+    else:
+        k[radius + 1:] = 0.0
+    k = torch.from_numpy(k / k.sum())
+    x = F.pad(img.permute(0, 3, 1, 2), (0, 0, radius, radius),
+              mode="replicate").permute(0, 2, 3, 1)
+    out = _depthwise_1d(x, k, 1)
+    return torch.maximum(out, img) if direction == "up" else out
+
+
+def rescale(img, height: int, width: int, fit: str = "cover",
+            method: str = "lanczos3"):
+    """img [B,H,W,C] to (height, width) by ``method`` (ops/resize.py):
+    "strict" resizes to it; "cover" scales to cover it and crops the
+    centre; "contain" scales to fit inside it and pads the rest with the
+    edge pixels."""
     from .resize import resize
 
     _, h, w, _ = img.shape
-    scale = max(height / h, width / w)
+    if fit == "strict":
+        return resize(img, (height, width), method)
+    scale = max(height / h, width / w) if fit == "cover" else \
+        min(height / h, width / w)
     nh, nw = int(round(h * scale)), int(round(w * scale))
-    out = resize(img, (nh, nw), "lanczos3")
-    top, left = (nh - height) // 2, (nw - width) // 2
-    return out[:, top:top + height, left:left + width]
+    out = resize(img, (nh, nw), method)
+    if fit == "cover":
+        top, left = (nh - height) // 2, (nw - width) // 2
+        return out[:, top:top + height, left:left + width]
+    pt, pl = (height - nh) // 2, (width - nw) // 2
+    return F.pad(out.permute(0, 3, 1, 2),
+                 (pl, width - nw - pl, pt, height - nh - pt),
+                 mode="replicate").permute(0, 2, 3, 1)
+
+
+def crop(img, top: int, left: int, height: int, width: int):
+    return img[:, top:top + height, left:left + width]
+
+
+def autoscale(img, height: int, width: int, mode: str = "lanczos3"):
+    return rescale(img, height, width, fit="cover", method=mode)
+
+
+# ------------------------------------------------------------ edge / depth
+
+_SOBEL_X = np.array([[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]], np.float32)
+_SOBEL_Y = np.ascontiguousarray(_SOBEL_X.T)
+
+
+def _conv3(img1, kernel):
+    """3x3 correlation of a one-channel [B,H,W,1] image, edge-replicated."""
+    k = torch.from_numpy(kernel).to(img1.device, img1.dtype).view(1, 1, 3, 3)
+    x = F.pad(img1.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="replicate")
+    return F.conv2d(x, k).permute(0, 2, 3, 1)
+
+
+def sobel_edges(img):
+    """(magnitude, direction) of the grayscale image's sobel gradient."""
+    g = to_grayscale(img)
+    gx = _conv3(g, _SOBEL_X)
+    gy = _conv3(g, _SOBEL_Y)
+    return torch.sqrt(gx ** 2 + gy ** 2), torch.atan2(gy, gx)
+
+
+def canny_edge(img, low: float = 0.1, high: float = 0.2):
+    """Blur (sigma 1.4) -> sobel -> non-maximum suppression over 4
+    direction bins (neighbours by wrap-around shifts) -> double threshold,
+    weak pixels kept next to a strong one (one dilation step). [B,H,W,1]
+    of 0 and 1."""
+    g = gaussian_blur(to_grayscale(img), 1.4)
+    mag, theta = sobel_edges(g)
+    ang = torch.remainder(theta, np.pi) / np.pi * 4.0
+    shifts = [((0, 1), (0, -1)), ((-1, 1), (1, -1)),
+              ((1, 0), (-1, 0)), ((1, 1), (-1, -1))]
+    keep = torch.zeros_like(mag, dtype=torch.bool)
+    for b, (s1, s2) in enumerate(shifts):
+        n1 = torch.roll(mag, s1, dims=(1, 2))
+        n2 = torch.roll(mag, s2, dims=(1, 2))
+        keep |= (ang >= b) & (ang < b + 1) & (mag >= n1) & (mag >= n2)
+    nms = torch.where(keep, mag, torch.zeros_like(mag))
+    strong = nms > high
+    weak = nms > low
+    dil = F.max_pool2d(strong.to(mag.dtype).permute(0, 3, 1, 2), 3, 1,
+                       padding=1).permute(0, 2, 3, 1) > 0
+    return (strong | (weak & dil)).to(mag.dtype)
+
+
+def normalmap_from_depthmap(depth, background_threshold: float = 0.05):
+    """Depth [B,H,W,1] -> normals [B,H,W,3] in [0,1]: the sobel gradient
+    as (-gx, -gy, 2/H), normalised; pixels below the threshold face the
+    viewer."""
+    d = to_grayscale(depth)
+    gx = _conv3(d, _SOBEL_X)
+    gy = _conv3(d, _SOBEL_Y)
+    z = torch.ones_like(gx) * 2.0 / d.shape[1]
+    n = torch.cat([-gx, -gy, z], dim=-1)
+    n = n / torch.linalg.vector_norm(n, dim=-1, keepdim=True)
+    up = torch.tensor([0.0, 0.0, 1.0], dtype=n.dtype, device=n.device)
+    n = torch.where(d < background_threshold, up, n)
+    return n * 0.5 + 0.5
+
+
+# --------------------------------------------------------- quantize / misc
+
+
+def palletize(img, colors: int = 16):
+    """Each channel rounded to ``colors`` uniform levels."""
+    q = float(colors - 1)
+    return torch.round(img * q) / q
+
+
+def quantize(img, threshold=0.5):
+    """1 where the image exceeds ``threshold`` (a float, or one a channel),
+    else 0."""
+    if not isinstance(threshold, (int, float)):
+        threshold = torch.tensor(list(threshold), dtype=img.dtype,
+                                 device=img.device)
+    return (img > threshold).to(img.dtype)
+
+
+def shuffle_flow(shape, generator, tile: int = 64):
+    """The content shuffle's random flow for an image of ``shape``
+    [B,H,W,C]: [B, H // tile + 1, W // tile + 1, 2] standard normal, drawn
+    on the CPU from ``generator``."""
+    b, h, w, _ = shape
+    return torch.randn((b, h // tile + 1, w // tile + 1, 2),
+                       generator=generator)
+
+
+def shuffle(img, flow, tile: int = 64):
+    """The content shuffle (ControlNet shuffle): ``flow`` (shuffle_flow)
+    resized bicubic to the image and scaled by tile / 2 gives each pixel
+    the offset of the pixel it takes, clipped to the image."""
+    from .resize import resize
+
+    b, h, w, _ = img.shape
+    flow = resize(flow.to(img.device, torch.float32), (h, w), "bicubic") * \
+        (tile / 2.0)
+    yy = torch.arange(h, device=img.device)[None, :, None]
+    xx = torch.arange(w, device=img.device)[None, None, :]
+    sy = (yy + flow[..., 0]).clamp(0, h - 1).long()
+    sx = (xx + flow[..., 1]).clamp(0, w - 1).long()
+    bidx = torch.arange(b, device=img.device)[:, None, None]
+    return img[bidx, sy, sx]
+
+
+def infill(img, mask_keep, iterations: int = 16):
+    """Fill where ``mask_keep`` <= 0.5 by repeated normalised blurs
+    (sigma 2) of the kept pixels, growing the filled area a step at a
+    time; kept pixels are returned as they were."""
+    out = img * mask_keep
+    alpha = mask_keep
+    for _ in range(iterations):
+        out_b = gaussian_blur(out, 2.0)
+        alpha_b = gaussian_blur(alpha, 2.0)
+        fill = out_b / torch.clamp(alpha_b, min=1e-6)
+        reached = alpha_b > 1e-4
+        out = torch.where(alpha > 0.5, out, fill * reached)
+        alpha = torch.maximum(alpha, reached.to(alpha.dtype))
+    return torch.where(mask_keep > 0.5, img, out)
+
+
+# ------------------------------------------------------ frequency blending
+
+
+def frequency_blend(low_img, high_img, sigma: float = 4.0):
+    """Low frequencies of one image with the high ones of another."""
+    low = gaussian_blur(low_img, sigma)
+    high = high_img - gaussian_blur(high_img, sigma)
+    return (low + high).clamp(0.0, 1.0)
+
+
+def _box_sum_1d(x, radius: int, axis: int):
+    """Sum over [i - r, i + r] along ``axis``, zero outside, from a
+    cumulative sum."""
+    n = x.shape[axis]
+    c = torch.cumsum(x, dim=axis)
+    c = torch.cat([torch.zeros_like(c.narrow(axis, 0, 1)), c], dim=axis)
+    idx = np.arange(n)
+    hi = torch.from_numpy(np.clip(idx + radius + 1, 0, n)).to(x.device)
+    lo = torch.from_numpy(np.clip(idx - radius, 0, n)).to(x.device)
+    return c.index_select(axis, hi) - c.index_select(axis, lo)
+
+
+def box_sum(x, radius: int):
+    """Sum over the (2r+1)^2 box around each pixel of NHWC x, zero
+    outside."""
+    return _box_sum_1d(_box_sum_1d(x, radius, 1), radius, 2)
+
+
+def guided_filter(guide, src, radius: int = 32, eps: float = 1e-6):
+    """He et al.'s guided filter of ``src`` by a grayscale or RGB
+    ``guide``, NHWC in [0,1], in f32 with box sums; an RGB guide solves a
+    3x3 system a pixel."""
+    guide = guide.float()
+    src = src.float()
+    gc = guide.shape[-1]
+    n = box_sum(torch.ones(guide.shape[:3] + (1,), device=guide.device),
+                radius)
+
+    def mean(x):
+        return box_sum(x, radius) / n
+
+    mean_i = mean(guide)
+    mean_p = mean(src)
+    if gc == 1:
+        cov_ip = mean(guide * src) - mean_i * mean_p
+        var_i = mean(guide * guide) - mean_i * mean_i
+        a = cov_ip / (var_i + eps)
+        b = mean_p - a * mean_i
+        return mean(a) * guide + mean(b)
+    sc = src.shape[-1]
+    bhw = tuple(guide.shape[:3])
+
+    def mean_outer(x, y):
+        prod = (x[..., :, None] * y[..., None, :]).reshape(
+            bhw + (x.shape[-1] * y.shape[-1],))
+        return mean(prod).reshape(bhw + (x.shape[-1], y.shape[-1]))
+
+    cov_ip = mean_outer(guide, src) - mean_i[..., :, None] * \
+        mean_p[..., None, :]
+    sigma = mean_outer(guide, guide) - mean_i[..., :, None] * \
+        mean_i[..., None, :]
+    sigma = sigma + eps * torch.eye(gc, device=guide.device)
+    a = torch.linalg.solve(sigma, cov_ip)
+    b = mean_p - torch.einsum("bhwgc,bhwg->bhwc", a, mean_i)
+    mean_a = mean(a.reshape(bhw + (gc * sc,))).reshape(a.shape)
+    return torch.einsum("bhwgc,bhwg->bhwc", mean_a, guide) + mean(b)
+
+
+def tv_denoise(img, weight: float = 0.1, iterations: int = 16):
+    """Total-variation smoothing steps (forward differences, the last row
+    and column repeated), clipped to [0,1]."""
+    x = img
+    for _ in range(iterations):
+        dx = torch.diff(x, dim=2, append=x[:, :, -1:])
+        dy = torch.diff(x, dim=1, append=x[:, -1:, :])
+        norm = torch.sqrt(dx ** 2 + dy ** 2 + 1e-8)
+        x = x + weight * 0.125 * (dx / norm + dy / norm)
+    return x.clamp(0.0, 1.0)

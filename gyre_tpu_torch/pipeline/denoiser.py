@@ -49,14 +49,17 @@ def make_denoiser(model_fn, schedule: sched.DiffusionSchedule,
 
 
 def cfg_model(unet_fn, context_uncond, context_cond, guidance_scale, *,
-              extra_uncond=None, extra_cond=None):
-    """Classifier-free guidance with both halves in one batch (parallel
-    CFG: [uncond B; cond B] rows through one UNet call).
+              parallel: bool = True, extra_uncond=None, extra_cond=None):
+    """Classifier-free guidance. Parallel: both halves in one batch
+    ([uncond B; cond B] rows through one UNet call); sequential
+    (``parallel=False``, the engine option ``cfg_sequential``): two UNet
+    calls of B rows, the unconditional one first.
 
     guidance_scale: a float, or a [B] tensor when coalesced requests carry
     different scales. ``extra_uncond``/``extra_cond``: keyword inputs of
     each half, each a dict of row tensors (SDXL's ``added_cond``), joined
-    key by key in the contexts' row order. Returns model_fn(x, t)."""
+    key by key in the contexts' row order under parallel CFG. Returns
+    model_fn(x, t)."""
     ctx = torch.cat([context_uncond, context_cond], dim=0)
     extra_uncond, extra_cond = extra_uncond or {}, extra_cond or {}
     kw = {k: {n: torch.cat([extra_uncond[k][n], v], dim=0)
@@ -67,9 +70,13 @@ def cfg_model(unet_fn, context_uncond, context_cond, guidance_scale, *,
         scale = float(guidance_scale)
 
     def fn(x, t):
-        out = unet_fn(torch.cat([x, x], dim=0), torch.cat([t, t], dim=0),
-                      ctx, **kw)
-        un, gu = out.chunk(2, dim=0)
+        if parallel:
+            out = unet_fn(torch.cat([x, x], dim=0),
+                          torch.cat([t, t], dim=0), ctx, **kw)
+            un, gu = out.chunk(2, dim=0)
+        else:
+            un = unet_fn(x, t, context_uncond, **extra_uncond)
+            gu = unet_fn(x, t, context_cond, **extra_cond)
         return un + scale * (gu - un)
 
     return fn

@@ -3,7 +3,8 @@
 Counterpart of gyre_tpu/pipeline/unified.py. A request runs: prompt
 encoding (CLIP, weighted and chunked prompts), the initial latents of its
 mode, any of the protocol's samplers over the CFG-wrapped UNet (parallel
-CFG: both halves in one UNet call) with its per-step noise
+CFG: both halves in one UNet call; ``cfg_sequential``: two calls of one
+half each, forced off under a cfg_only hint) with its per-step noise
 (``make_noise_fn``), the VAE decode (in overlapping tiles past
 ``VAE_TILE_THRESHOLD`` latents) and, on request, quantisation to uint8 on
 the device.
@@ -36,7 +37,9 @@ against ceil(128 / chunk) chunks until the solver reaches sigma_min. The
 hires fix runs unchunked, as in the JAX package.
 
 Device work runs under ``torch.inference_mode()`` in the helpers below;
-the generator yields outside them.
+the generator yields outside them. ``SD_DEBUG_LATENTS`` dumps the latents
+at init (modes with an init image), after each chunk and at the end
+(utils/latent_debug.py).
 
 Hints (``hints``: ControlNets and T2I adapters, ``_HintStack``) condition
 the engine's UNet: a ControlNet's residuals are added to the skips and the
@@ -66,6 +69,7 @@ from ..models import vae as vae_mod
 from ..ops import images as I
 from ..ops.resize import resize
 from ..utils import rng
+from ..utils.latent_debug import log_latents
 from . import denoiser, modes, prompts, samplers
 from . import schedule as sched
 
@@ -463,11 +467,13 @@ class UnifiedPipeline:
 
     def _denoiser(self, ctx_u, ctx_g, guidance_scale, guided: bool,
                   tiling=(False, False), wrap_model=None, ms=None,
-                  hints: _HintStack | None = None, added=(None, None)):
+                  hints: _HintStack | None = None, added=(None, None),
+                  cfg_parallel: bool = True):
         """denoise(x, sigma) -> x0 through ``ms``'s UNet (this engine's by
         default), conditioned by ``hints`` and by ``added`` (SDXL's
         (added_u, added_g), or Nones), its input built by ``wrap_model``
-        (inpaint9, depth2img) and CFG-guided when ``guided``."""
+        (inpaint9, depth2img) and CFG-guided when ``guided``, both halves
+        in one call unless not ``cfg_parallel``."""
         ms = ms or self.ms
         ucfg = ms.config.unet
         cdt = self.compute_dtype
@@ -485,6 +491,7 @@ class UnifiedPipeline:
         extra_g = {} if added_g is None else {"added_cond": added_g}
         if guided:
             model = denoiser.cfg_model(model_fn, ctx_u, ctx_g, guidance_scale,
+                                       parallel=cfg_parallel,
                                        extra_uncond=extra_u,
                                        extra_cond=extra_g)
         else:
@@ -624,6 +631,7 @@ class UnifiedPipeline:
                   hires_oos_fraction: float = 0.25,
                   hints=None,
                   clip_guidance_scale: float = 0.0,
+                  cfg_sequential: bool = False,
                   clip_layer: int = 0,
                   noise_type: str = "normal",
                   progress_callback=None,
@@ -633,8 +641,8 @@ class UnifiedPipeline:
                   output_dtype: str | None = None):
         if clip_guidance_scale > 0:
             raise NotImplementedError(
-                "clip_guidance_scale (ROADMAP C6): not ported to "
-                "gyre_tpu_torch yet")
+                "clip_guidance_scale (ROADMAP C7, after the CLIP vision "
+                "tower of ROADMAP C6): not ported to gyre_tpu_torch yet")
         ms = self.ms
         ucfg = ms.config.unet
         factor = 8
@@ -700,6 +708,12 @@ class UnifiedPipeline:
         hint_stack = (_HintStack(hints, batch, guided, ucfg,
                                  self.compute_dtype, self.device, lh, lw)
                       if hints else None)
+        # cfg_only hints need both CFG halves in one call
+        if hint_stack is not None and any(h["cfg_only"]
+                                          for h in hint_stack.hints):
+            cfg_sequential = False
+        if mode != "txt2img":
+            log_latents("init", init_latents)
 
         wrap_model = None
         if mode == "inpaint9":
@@ -707,7 +721,8 @@ class UnifiedPipeline:
         elif mode == "depth2img":
             wrap_model = modes.make_extra_channels_wrapper(extra)
         dn_base = self._denoiser(ctx_u, ctx_g, gs_arg, guided, tiling_xy,
-                                 wrap_model, hints=hint_stack, added=added)
+                                 wrap_model, hints=hint_stack, added=added,
+                                 cfg_parallel=not cfg_sequential)
         if self._graft_pipe is not None:
             # the top model under its own prediction type, without SDXL's
             # added conditioning (as in the JAX package)
@@ -715,7 +730,8 @@ class UnifiedPipeline:
             gctx_u, gctx_g = self._graft_contexts(
                 prompt, negative_prompt, batch, guided)
             dn_top = self._denoiser(gctx_u, gctx_g, gs_arg, guided,
-                                    tiling_xy, ms=gms)
+                                    tiling_xy, ms=gms,
+                                    cfg_parallel=not cfg_sequential)
             dn_base = modes.make_graft(keys)(
                 dn_base, dn_top, modes.log_progress(float(sigmas[0]),
                                                     sigma_last))
@@ -795,6 +811,7 @@ class UnifiedPipeline:
             if progress_callback is not None:
                 progress_callback(done, loop_total)
             if chunked:
+                log_latents(f"chunk:{done}", x)
                 if stop_event is not None and stop_event.is_set():
                     return None
                 yield done, loop_total
@@ -804,6 +821,7 @@ class UnifiedPipeline:
         if final_blend is not None:
             with torch.inference_mode():
                 x = final_blend(x)
+        log_latents("final", x)
         if return_latents:
             return x
         images = self.vae_decode(x)

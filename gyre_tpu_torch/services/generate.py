@@ -21,10 +21,20 @@ the request's size, condition it through the engine's hintset
 (``hint_priority``). ChainGenerate runs its stages with RETURN and PASS
 routing (a stage's images become the next stage's init images), and the
 Async trio runs a request in the background, as the JAX servicer does.
-Every other request feature (artifact adjustments, CLIP guidance) answers
-UNIMPLEMENTED, naming its ROADMAP item; none is ignored silently. The
-safety checker is not ported (ROADMAP C6): as the JAX package without
-trained checker weights, nothing is flagged.
+
+An artifact's ``adjustments`` and ``postAdjustments`` (ImageAdjustment
+chains, services/adjustments.py) apply at the stages the JAX servicer
+applies them, on the dispatcher's thread: so an RGBA init image's alpha
+becomes a feathered mask, and an ordinary image a depth, canny, colour or
+shuffle hint. A request addressed to a ``depth`` task engine transforms its
+init image through that engine and answers one image. The engine's
+``options:`` are read as the JAX servicer reads them (request values win),
+``cfg_sequential`` among them, and any other key is ignored. What the port
+lacks answers UNIMPLEMENTED, naming its ROADMAP item, and is never ignored
+silently where it would change the image: CLIP guidance (C7), ToMe (C6),
+the other task engines (D3, D4). The safety checker is not ported (ROADMAP
+C6): as the JAX package without trained checker weights, nothing is
+flagged.
 """
 
 from __future__ import annotations
@@ -51,10 +61,6 @@ from .exception_to_grpc import CacheKeyError, exception_to_grpc
 logger = logging.getLogger(__name__)
 
 MAX_SEED = 2 ** 32 - 1
-# engine `options:` the port applies as request defaults, the sizes the
-# manager's prewarm runs, and the engine the manager grafts on top
-_ENGINE_OPTIONS = ("sampler", "karras_rho", "churn", "warmup_lms",
-                   "ddim_cutoff", "hires_fix", "prewarm_sizes", "graft")
 
 
 @dataclass
@@ -88,6 +94,7 @@ class ExtractedParams:
     hires_fix: bool | None = None
     hires_oos_fraction: float = 0.25
     tiling: bool | str = False
+    cfg_sequential: bool = False
     echo_artifacts: list = field(default_factory=list)
     lora_artifacts: list = field(default_factory=list)
     ti_artifacts: list = field(default_factory=list)
@@ -105,33 +112,52 @@ def _unported(feature: str, item: str | None = None):
         f"{feature} is not ported to gyre_tpu_torch yet{where}")
 
 
-def extract_params(request: pb.Request) -> ExtractedParams:
+def _unported_clip_guidance():
+    raise NotImplementedError(
+        "CLIP guidance is not ported to gyre_tpu_torch yet (ROADMAP C7, "
+        "after the CLIP vision tower of ROADMAP C6)")
+
+
+def extract_params(request: pb.Request, adjuster=None) -> ExtractedParams:
+    """The request's parameters. ``adjuster(img, chain)`` applies an
+    ImageAdjustment chain to a [1,H,W,C] image (the servicer's runs
+    services/adjustments.py on the dispatcher); None skips the chains."""
     p = ExtractedParams(engine_id=request.engine_id,
                         request_id=request.request_id)
 
+    def adjust(img, art, post=False):
+        chain = art.postAdjustments if post else art.adjustments
+        if adjuster is not None and len(chain):
+            return np.asarray(adjuster(img, chain))
+        return img
+
     def artifact_image(art, stage=pb.ARTIFACT_AFTER_ADJUSTMENTS, depth=0):
-        """An artifact's image [1,H,W,C] in [0,1], following ``ref``
-        artifacts (by uuid or id) within the request."""
+        """An artifact's image [1,H,W,C] in [0,1] at ``stage``: a ``ref``
+        artifact (by uuid or id within the request) resolved at the stage
+        it names, then this artifact's adjustments, and at
+        AFTER_POSTADJUSTMENTS its post-adjustments too."""
         if depth > 8:
             raise ValueError("artifact reference chain too deep (cycle?)")
-        # the stages that apply the artifact's own adjustment chains
-        if (stage != pb.ARTIFACT_BEFORE_ADJUSTMENTS and
-                len(art.adjustments)) or (
-                stage == pb.ARTIFACT_AFTER_POSTADJUSTMENTS and
-                len(art.postAdjustments)):
-            _unported("artifact adjustments", "D1")
-        if art.WhichOneof("data") != "ref":
-            return I.decode_png(art.binary)
-        want = art.ref.WhichOneof("reference")
-        for other in request.prompt:
-            if other.WhichOneof("prompt") != "artifact":
-                continue
-            o = other.artifact
-            if (want == "uuid" and o.uuid == art.ref.uuid) or \
-                    (want == "id" and o.id == art.ref.id):
-                return artifact_image(o, art.ref.stage, depth + 1)
-        raise ValueError(f"artifact reference {art.ref.uuid or art.ref.id!r}"
-                         " matches no artifact in this request")
+        if art.WhichOneof("data") == "ref":
+            want = art.ref.WhichOneof("reference")
+            img = next((artifact_image(o.artifact, art.ref.stage, depth + 1)
+                        for o in request.prompt
+                        if o.WhichOneof("prompt") == "artifact" and (
+                            (want == "uuid" and o.artifact.uuid ==
+                             art.ref.uuid) or
+                            (want == "id" and o.artifact.id == art.ref.id))),
+                       None)
+            if img is None:
+                raise ValueError(f"artifact reference "
+                                 f"{art.ref.uuid or art.ref.id!r} matches "
+                                 "no artifact in this request")
+        else:
+            img = I.decode_png(art.binary)
+        if stage != pb.ARTIFACT_BEFORE_ADJUSTMENTS:
+            img = adjust(img, art)
+        if stage == pb.ARTIFACT_AFTER_POSTADJUSTMENTS:
+            img = adjust(img, art, post=True)
+        return img
 
     pos, neg = [], []
     for prompt in request.prompt:
@@ -218,7 +244,7 @@ def extract_params(request: pb.Request) -> ExtractedParams:
         if sp.HasField("schedule") and sp.schedule.HasField("start"):
             p.strength = sp.schedule.start
         if sp.HasField("guidance"):
-            _unported("CLIP guidance", "C6")
+            _unported_clip_guidance()
         if not sp.HasField("sampler"):
             continue
         s = sp.sampler
@@ -492,20 +518,32 @@ class GenerationServiceServicer:
                           "cfg_only": priority == "hint"})
         return hints
 
-    def _run_request(self, request: pb.Request, stop_event=None):
-        """Yield (image uint8 [H,W,3], seed, index, metadata) for each
-        image, then (artifact, None, index, None) for each artifact the
-        request asked to have echoed back."""
-        p = extract_params(request)
-        engine_id = p.engine_id or self.manager.default_engine_id()
-        # an unset size is the engine's natural one (SD1.5 512, SD2 768,
-        # SDXL 1024)
-        natural = self.manager.natural_size(engine_id)
-        p.height, p.width = p.height or natural, p.width or natural
-        opts = self.manager.spec(engine_id).options or {}
-        unknown = sorted(set(opts) - set(_ENGINE_OPTIONS))
-        if unknown:
-            _unported(f"engine options {unknown}")
+    def _adjuster(self, seed: int):
+        """An ImageAdjustment chain runner for extract_params: the chain
+        runs on the dispatcher's thread (it may run a task engine on the
+        card) on the image moved to the manager's device, with no
+        chain-level engine, so each adjustment finds its task's engine,
+        or the one its ``engine_id`` names."""
+        from . import adjustments
+
+        def adjuster(img, chain):
+            def run():
+                x = torch.from_numpy(np.ascontiguousarray(img)).to(
+                    self.manager.device)
+                return adjustments.apply_image_adjustment(
+                    x, chain, self.manager, None, seed).cpu().numpy()
+
+            return self.manager.dispatcher.submit(run, {}, solo=True
+                                                  ).result()
+
+        return adjuster
+
+    @staticmethod
+    def _engine_options(p: ExtractedParams, opts: dict):
+        """The engine's ``options:`` as request defaults, the keys the JAX
+        servicer reads; an option that would change the image and that the
+        port lacks raises (ToMe C6, CLIP guidance C7); others are
+        ignored."""
         if not p.sampler_set:
             p.sampler = opts.get("sampler", p.sampler)
         if p.karras_rho is None and "karras_rho" in opts:
@@ -514,6 +552,46 @@ class GenerationServiceServicer:
             p.churn = float(opts["churn"])
         if p.hires_fix is None and "hires_fix" in opts:
             p.hires_fix = bool(opts["hires_fix"])
+        p.cfg_sequential = bool(opts.get("cfg_sequential", False))
+        clip = opts.get("clip")
+        if float(opts.get("clip_guidance_scale", 0.0)) or (
+                isinstance(clip, dict) and clip.get("guidance_scale")):
+            _unported_clip_guidance()
+        if float(opts.get("tome_ratio", 0.0)) > 0:
+            _unported("ToMe (engine option tome_ratio)", "C6")
+
+    def _run_task(self, p: ExtractedParams, spec):
+        """A request to a task engine: its init image through the engine's
+        pipeline on the dispatcher's thread; yields the one image."""
+        if p.init_image is None:
+            raise ValueError(f"{spec.task} request needs an init image")
+        fn = self.manager.task_pipeline(spec.task, spec.id)
+        if fn is None:                              # a disabled engine
+            raise KeyError(f"engine {spec.id} is not enabled")
+        init = p.init_image
+        out = self.manager.dispatcher.submit(
+            lambda: fn(init).cpu().numpy(), {}, solo=True).result()
+        seed = p.seeds[0] if p.seeds else 0
+        yield out[0], seed, 0, {"engine": spec.id, "op": spec.task}
+
+    def _run_request(self, request: pb.Request, stop_event=None):
+        """Yield (image uint8 [H,W,3], seed, index, metadata) for each
+        image, then (artifact, None, index, None) for each artifact the
+        request asked to have echoed back."""
+        seed = request.image.seed[0] if request.image.seed else 0
+        with STATS.timer("extract"):
+            p = extract_params(request, adjuster=self._adjuster(seed))
+        engine_id = p.engine_id or self.manager.default_engine_id()
+        spec = self.manager.spec(engine_id)
+        if spec.task != "generate":
+            yield from self._run_task(p, spec)
+            return
+        # an unset size is the engine's natural one (SD1.5 512, SD2 768,
+        # SDXL 1024)
+        natural = self.manager.natural_size(engine_id)
+        p.height, p.width = p.height or natural, p.width or natural
+        opts = spec.options or {}
+        self._engine_options(p, opts)
         seeds = fill_seeds(p)
         meta = {"prompt": p.prompt, "negative_prompt": p.negative_prompt,
                 "engine": engine_id, "sampler": p.sampler, "steps": p.steps,
@@ -548,6 +626,7 @@ class GenerationServiceServicer:
                     hires_fix=p.hires_fix,
                     hires_oos_fraction=p.hires_oos_fraction,
                     hints=hints or None,
+                    cfg_sequential=p.cfg_sequential,
                     output_dtype="uint8", stop_event=stop_event,
                     chunk_steps=10 if stop_event is not None else 0)
                 try:

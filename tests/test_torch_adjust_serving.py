@@ -1,0 +1,296 @@
+"""Artifact adjustment chains, depth engines and engine options through the
+port's generate servicer and server, on the CPU at the SD_TEST preset in
+f32, against the JAX package's servicer: the masks and hints that
+client.py's --mask_from_image_alpha and --hint_from_image (depth, canny,
+color, shuffle) requests extract (1e-4; the shuffle given the JAX flow),
+a request addressed to a depth engine (its PNG within one level), the
+engine of config/examples.yaml with its ``options:``, the options the port
+lacks (ToMe C6, CLIP guidance C7) and the hinters it lacks (D3)
+answering UNIMPLEMENTED, ``cfg_sequential`` reaching the pipeline; then
+client.py itself against the port's server for each."""
+
+import os
+import threading
+import time
+import urllib.request
+
+import grpc
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from safetensors.numpy import save_file
+
+from gyre_tpu.generated import generation_pb2 as jpb
+from gyre_tpu.http.router import FakeGrpcContext as JContext
+from gyre_tpu.manager.manager import EngineManager as JManager
+from gyre_tpu.services import adjustments as jadj
+from gyre_tpu.services import generate as jgen
+from gyre_tpu_torch import server as tserver
+from gyre_tpu_torch.generated import generation_pb2 as tpb
+from gyre_tpu_torch.http.router import AbortError as TAbortError
+from gyre_tpu_torch.http.router import FakeGrpcContext as TContext
+from gyre_tpu_torch.manager.manager import EngineManager as TManager
+from gyre_tpu_torch.models import dpt as tdpt
+from gyre_tpu_torch.ops import images as timages
+from gyre_tpu_torch.services import generate as tgen
+from test_torch_adjustments import _client_request, _jax_flow, _png
+from test_torch_modes import one_torch_thread  # noqa: F401
+from test_torch_server import BEARER, TOKEN, _free_port
+
+RNG = np.random.default_rng(17)
+IMG = RNG.random((64, 64, 3)).astype(np.float32)
+RGBA = np.concatenate([IMG, np.ones((64, 64, 1), np.float32)], -1)
+RGBA[20:44, 16:40, 3] = 0.0                  # a transparent hole
+
+
+@pytest.fixture(scope="module")
+def depth_ckpt(tmp_path_factory):
+    state = tdpt.state_dict_hf(tdpt.random_dpt(tdpt.DPT_TEST, 4,
+                                               device="cpu"))
+    path = str(tmp_path_factory.mktemp("dpt") / "dpt.safetensors")
+    save_file({k: v.numpy() for k, v in state.items()}, path)
+    return path
+
+
+def _engines(depth_ckpt):
+    return [{"id": "tiny", "default": True, "model": "preset/test"},
+            # config/examples.yaml:63-66's options
+            {"id": "examples", "model": "preset/test",
+             "options": {"sampler": "k_dpmpp_2m",
+                         "hintset": "sd15-hints"}},
+            {"id": "midas-depth", "task": "depth", "model": depth_ckpt}]
+
+
+@pytest.fixture(scope="module")
+def servicers(depth_ckpt, one_torch_thread):  # noqa: F811
+    engines = _engines(depth_ckpt)
+    tm = TManager(engines, device="cpu", compute_dtype=torch.float32,
+                  batch_max=2, gather_ms=0.0)
+    tm.load_engines()
+    jm = JManager(engines, compute_dtype=jnp.float32, batch_max=2)
+    jm.load_engines()
+    yield (tgen.GenerationServiceServicer(tm, batch_max=2),
+           jgen.GenerationServiceServicer(jm, batch_max=2))
+    tm.dispatcher.stop()
+    jm.dispatcher.stop()
+
+
+@pytest.fixture(autouse=True)
+def jax_shuffle_flow(monkeypatch):
+    monkeypatch.setattr(timages, "shuffle_flow", _jax_flow)
+
+
+def _argv(kind, tmp_path):
+    if kind == "mask_from_image_alpha":
+        return ["-i", _png(tmp_path / "init.png", RGBA),
+                "--mask_from_image_alpha"]
+    return ["--hint_from_image", f"{kind}:{_png(tmp_path / 'h.png', IMG)}"]
+
+
+@pytest.mark.parametrize("kind", ["mask_from_image_alpha", "depth",
+                                  "canny", "color", "shuffle"])
+def test_client_requests_extract_as_in_jax(servicers, kind, tmp_path,
+                                           monkeypatch):
+    """extract_params with each servicer's adjuster: the mask or the hint
+    image of client.py's request equals the JAX servicer's; the depth hint
+    runs the configured DPT engine in both."""
+    port, ref = servicers
+    jreq = _client_request(_argv(kind, tmp_path) + ["-S", "0"], monkeypatch)
+    treq = tpb.Request.FromString(jreq.SerializeToString())
+    got = tgen.extract_params(treq, adjuster=port._adjuster(0))
+    want = jgen.extract_params(jreq, adjuster=lambda img, chain: (
+        jadj.apply_image_adjustment(img, chain, ref.manager, None)))
+    if kind == "mask_from_image_alpha":
+        pairs = [(got.mask_image, want.mask_image),
+                 (got.init_image, want.init_image)]
+        assert want.mask_image.max() > 0.5          # the hole regenerates
+    else:
+        (t, img, w, prio), = got.hint_images
+        (jt, jimg, jw, jprio), = want.hint_images
+        assert (t, w, prio) == (jt, jw, jprio) == (kind, 1.0, "balanced")
+        pairs = [(img, jimg)]
+    for a, b in pairs:
+        assert a.shape == b.shape
+        assert np.abs(np.asarray(a) - np.asarray(b)).max() <= 1e-4
+
+
+def _depth_request(pb, img=IMG):
+    req = pb.Request(engine_id="midas-depth", request_id="d")
+    req.prompt.add().text = ""
+    p = req.prompt.add()
+    p.artifact.type = pb.ARTIFACT_IMAGE
+    p.artifact.binary = timages.encode_png(img)
+    p.parameters.init = True
+    req.image.seed.append(5)
+    return req
+
+
+def test_depth_engine_request_matches_jax(servicers):
+    port, ref = servicers
+    t = list(port.Generate(_depth_request(tpb), TContext()))
+    j = list(ref.Generate(_depth_request(jpb), JContext()))
+    assert len(t) == len(j) == 1
+    ti = timages.decode_png(t[0].artifacts[0].binary)
+    ji = timages.decode_png(j[0].artifacts[0].binary)
+    assert ti.shape == ji.shape == (1, 64, 64, 3)
+    assert np.abs(ti - ji).max() <= 1.0 / 255 + 1e-6
+    assert ti.std() > 0.05
+
+
+def _generate_request(pb, engine_id):
+    req = pb.Request(engine_id=engine_id, request_id=engine_id)
+    req.prompt.add().text = "a boat"
+    img = req.image
+    img.height, img.width, img.steps = 64, 64, 2
+    img.seed.append(3)
+    return req
+
+
+def test_examples_engine_options_serve_as_in_jax(servicers):
+    """config/examples.yaml's engine options (a sampler, a hintset) serve:
+    the JAX servicer reads the sampler and ignores the rest; the port used
+    to refuse every request of that engine."""
+    port, ref = servicers
+    t = list(port.Generate(_generate_request(tpb, "examples"), TContext()))
+    j = list(ref.Generate(_generate_request(jpb, "examples"), JContext()))
+    assert [(a.artifacts[0].mime, a.artifacts[0].seed) for a in t] == \
+        [(a.artifacts[0].mime, a.artifacts[0].seed) for a in j]
+    meta = timages.png_metadata(t[0].artifacts[0].binary)
+    assert meta["sampler"] == "k_dpmpp_2m"
+
+
+@pytest.mark.parametrize("options,item", [
+    ({"tome_ratio": 0.5}, "C6"), ({"clip_guidance_scale": 0.3}, "C7"),
+    ({"clip": {"guidance_scale": 0.4}}, "C7")])
+def test_unported_engine_options_are_unimplemented(options, item):
+    m = TManager([{"id": "tiny", "model": "preset/test",
+                   "options": options}], device="cpu",
+                 compute_dtype=torch.float32)
+    try:
+        servicer = tgen.GenerationServiceServicer(m)
+        context = TContext()
+        with pytest.raises(TAbortError):
+            list(servicer.Generate(_generate_request(tpb, "tiny"), context))
+        assert context.code == grpc.StatusCode.UNIMPLEMENTED
+        assert f"ROADMAP {item}" in context.details
+    finally:
+        m.dispatcher.stop()
+
+
+def test_cfg_sequential_and_ignored_options_reach_the_pipeline(monkeypatch):
+    """``cfg_sequential`` reaches the pipeline; an option the port does not
+    read (tome_ratio 0, a non-dict clip) changes nothing."""
+    m = TManager([{"id": "tiny", "model": "preset/test",
+                   "options": {"cfg_sequential": True, "tome_ratio": 0.0,
+                               "clip": "@clip-common", "unknown": 1}}],
+                 device="cpu", compute_dtype=torch.float32)
+    seen = []
+    submit = m.dispatcher.submit
+
+    def record(fn, kwargs, *args, **kw):
+        seen.append(dict(kwargs))
+        return submit(fn, kwargs, *args, **kw)
+
+    monkeypatch.setattr(m.dispatcher, "submit", record)
+    try:
+        servicer = tgen.GenerationServiceServicer(m)
+        answers = list(servicer.Generate(_generate_request(tpb, "tiny"),
+                                         TContext()))
+        assert len(answers) == 1
+        assert [k.get("cfg_sequential") for k in seen if "seeds" in k] == \
+            [True]
+    finally:
+        m.dispatcher.stop()
+
+
+def test_unported_hinter_engines_are_unimplemented(depth_ckpt, tmp_path,
+                                                   monkeypatch):
+    """With an edge engine configured (a D3 hinter), an edge hint chain and
+    a request to that engine answer UNIMPLEMENTED naming D3, not a tensor
+    proxy image."""
+    m = TManager(_engines(depth_ckpt) + [{"id": "hed", "task": "edge"}],
+                 device="cpu", compute_dtype=torch.float32)
+    try:
+        servicer = tgen.GenerationServiceServicer(m)
+        jreq = _client_request(["--hint_from_image",
+                                f"hed:{_png(tmp_path / 'h.png', IMG)}"],
+                               monkeypatch)
+        for req in (tpb.Request.FromString(jreq.SerializeToString()),
+                    _depth_request(tpb)):
+            if not req.engine_id:
+                req.engine_id = "tiny"
+            else:
+                req.engine_id = "hed"
+            context = TContext()
+            with pytest.raises(TAbortError):
+                list(servicer.Generate(req, context))
+            assert context.code == grpc.StatusCode.UNIMPLEMENTED
+            assert "ROADMAP D3" in context.details
+    finally:
+        m.dispatcher.stop()
+
+
+# ----------------------------------------------- client.py against the server
+
+
+@pytest.fixture(scope="module")
+def server(depth_ckpt, tmp_path_factory):
+    root = tmp_path_factory.mktemp("srv")
+    cfg = root / "engines.yaml"
+    cfg.write_text(
+        f"- {{id: tiny, default: true, model: preset/test}}\n"
+        f"- {{id: examples, model: preset/test, options: {{sampler: "
+        f"k_dpmpp_2m, hintset: sd15-hints}}}}\n"
+        f"- {{id: midas-depth, task: depth, model: {depth_ckpt}}}\n")
+    grpc_port, http_port = _free_port(), _free_port()
+    argv = ["--grpc_port", str(grpc_port), "--http_port", str(http_port),
+            "--enginecfg", str(cfg), "--device", "cpu", "--dtype",
+            "float32", "--cache_path", str(root / "cache"),
+            "--access_token", TOKEN]
+    stop = threading.Event()
+    thread = threading.Thread(target=tserver.main, args=(argv, stop),
+                              daemon=True)
+    thread.start()
+    deadline = time.monotonic() + 120
+    while True:
+        try:
+            with urllib.request.urlopen(urllib.request.Request(
+                    f"http://localhost:{http_port}/status", headers=BEARER),
+                    timeout=2) as r:
+                import json
+
+                if all(e["ready"] for e in json.loads(r.read())["engines"]):
+                    break
+        except (OSError, ValueError):
+            pass
+        if time.monotonic() > deadline or not thread.is_alive():
+            pytest.fail("server did not come up")
+        time.sleep(0.2)
+    yield grpc_port
+    stop.set()
+    thread.join(30)
+
+
+@pytest.mark.parametrize("case", ["mask_from_image_alpha", "depth", "canny",
+                                  "color", "shuffle", "depth_engine",
+                                  "examples"])
+def test_client_py_against_the_port(server, case, tmp_path):
+    """client.py, unchanged, gets its PNG from the port's server."""
+    import client
+
+    out = str(tmp_path / "out.png")
+    argv = ["a boat", "--host", f"localhost:{server}", "--key", TOKEN,
+            "-o", out, "-W", "64", "-H", "64", "--steps", "2", "-S", "9"]
+    if case == "depth_engine":
+        argv += ["-e", "midas-depth", "-i", _png(tmp_path / "i.png", IMG)]
+    elif case == "examples":
+        argv += ["-e", "examples"]
+    else:
+        argv += _argv(case, tmp_path)
+    assert client.main(argv) in (0, None)
+    files = sorted(f for f in os.listdir(tmp_path) if f.startswith("out"))
+    assert files, os.listdir(tmp_path)
+    img = timages.decode_png(open(tmp_path / files[0], "rb").read())
+    assert img.shape == (1, 64, 64, 3)

@@ -376,10 +376,10 @@ def test_mode_fields_reach_the_pipeline(port, monkeypatch):
     ("ARTIFACT_TOKEN_EMBEDDING", "C3"), ("adjusted", "D1"),
     ("ARTIFACT_LORA", "C3"), ("ARTIFACT_HINT_IMAGE", "C4")])
 def test_artifact_prompts_name_their_item(kind, item):
-    """An artifact prompt the port does not serve raises naming its
-    ROADMAP item; those of the items ported since (LoRA and embedding
-    artifacts, C3; hint images, C4) are extracted as the JAX servicer
-    extracts them."""
+    """The artifact prompts of the items ported since (LoRA and embedding
+    artifacts, C3; hint images, C4; adjustment chains, D1) are extracted
+    as the JAX servicer extracts them: an adjusted init image through each
+    package's adjustments."""
     reqs = []
     for pb in (tpb, jpb):
         req = _request(pb)
@@ -391,8 +391,18 @@ def test_artifact_prompts_name_their_item(kind, item):
             prompt.parameters.weight = 0.5
         reqs.append(req)
     if item == "D1":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            tgen.extract_params(reqs[0])
+        from gyre_tpu.services import adjustments as jadj
+        from gyre_tpu_torch.services import adjustments as tadj
+
+        got = tgen.extract_params(reqs[0], adjuster=lambda img, chain: (
+            tadj.apply_image_adjustment(torch.from_numpy(img), chain)))
+        want = jgen.extract_params(reqs[1], adjuster=lambda img, chain: (
+            jadj.apply_image_adjustment(img, chain)))
+        plain = tgen.extract_params(reqs[0])
+        np.testing.assert_allclose(got.init_image, want.init_image,
+                                   atol=1e-6)
+        np.testing.assert_allclose(got.init_image, 1.0 - plain.init_image,
+                                   atol=1e-6)
         return
     got, want = tgen.extract_params(reqs[0]), jgen.extract_params(reqs[1])
     for name in ("lora_artifacts", "ti_artifacts", "hint_images"):

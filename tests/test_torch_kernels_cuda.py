@@ -18,7 +18,10 @@ straddle two groups and under cancellation; both at the hires fix's
 ragged UNet levels (9, 18, 36), on a non-square canvas and at the
 ControlNet's batch-1 shapes (one CFG row); K1 at SD2's and SDXL's head
 dim 64 and K2a/K2b at the SDXL refiner's channel counts (12 to 96
-channels a group). Bounds as in chip_smoke.py:
+channels a group); K1 at DPT-Large's self-attention (one image, 16 heads
+of 64, T = 257 / 577 / 1025: ragged query rows) and inside the DPT's
+blocks, and K2a/K2b at the SD1.5 UNet's one-row shapes of cfg_sequential.
+Bounds as in chip_smoke.py:
 2e-2 of max |plain| in bf16 (compounded bf16 rounding, ~5x margin), 1e-3
 for K2a's f32 statistics.
 """
@@ -336,6 +339,61 @@ def test_kernels_at_refiner_channels(gen, hw, c, co):
     72 and 96 channels a group (384, 1152, 2304, 3072), at a CFG call's
     two rows."""
     x = (torch.randn((2, hw, hw, c), generator=gen, device="cuda") +
+         torch.randn((c,), generator=gen, device="cuda")).to(torch.bfloat16)
+    gs = 1 + 0.1 * _randn(gen, c, dtype=torch.float32)
+    gb = 0.1 * _randn(gen, c, dtype=torch.float32)
+    wt = _randn(gen, 3, 3, c, co) * (9 * c) ** -0.5
+    cb = 0.1 * _randn(gen, co, dtype=torch.float32)
+    a, bb = FC.gn_affine(x, gs, gb, 32, 1e-5)
+    a_ref, b_ref = FC.gn_affine_plain(x, gs, gb, 32, 1e-5)
+    assert _rel(a, a_ref) <= F32_STATS_BOUND
+    assert _rel(bb, b_ref) <= F32_STATS_BOUND
+    chain = FC.gn_silu_conv3x3(x, gs, gb, wt, cb, groups=32, eps=1e-5)
+    chain_ref = FC.gn_silu_conv3x3_plain(x, gs, gb, wt, cb, groups=32,
+                                         eps=1e-5)
+    assert _rel(chain, chain_ref) <= BF16_BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [257, 577, 1025])
+def test_flash_attention_dpt(gen, t):
+    """DPT-Large's self-attention: T = (size / 16)² + 1 is odd and no
+    multiple of K1's tiles, so query rows and key columns are ragged."""
+    q, k, v = (_btd(gen, 1, t, 16, 64) for _ in range(3))
+    before = _build.launches["flash_attention"]
+    out = A.attention(q, k, v)
+    assert _build.launches["flash_attention"] == before + 1
+    assert _rel(out, _attention_ref(q, k, v)) <= BF16_BOUND
+
+
+@pytest.mark.cuda
+def test_dpt_blocks_launch_k1(gen):
+    """A DPT (test widths, bf16 on the card) runs one K1 launch a block,
+    and its depth map is close to the same weights' in f32 on the CPU."""
+    from gyre_tpu_torch.models import dpt
+
+    model = dpt.random_dpt(dpt.DPT_TEST, seed=0, dtype=torch.bfloat16,
+                           device="cuda")
+    x = torch.rand((1, 64, 64, 3), generator=gen, device="cuda")
+    before = _build.launches["flash_attention"]
+    with torch.inference_mode():
+        out = dpt.estimate_depth(model, x, 64)
+    assert _build.launches["flash_attention"] == \
+        before + dpt.DPT_TEST.layers
+    cpu = dpt.random_dpt(dpt.DPT_TEST, seed=0, device="cpu")
+    with torch.inference_mode():
+        ref = dpt.estimate_depth(cpu, x.cpu(), 64)
+    assert float((out.cpu() - ref).abs().max()) <= 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,c,co", [
+    (8, 2560, 1280), (16, 2560, 1280), (16, 1920, 1280), (32, 1920, 640),
+    (32, 1280, 640), (32, 960, 640), (64, 960, 320), (64, 640, 320)])
+def test_kernels_at_one_row(gen, hw, c, co):
+    """K2a and K2b at the SD1.5 UNet's up-path shapes at one row (each
+    CFG half a call of its own under cfg_sequential)."""
+    x = (torch.randn((1, hw, hw, c), generator=gen, device="cuda") +
          torch.randn((c,), generator=gen, device="cuda")).to(torch.bfloat16)
     gs = 1 + 0.1 * _randn(gen, c, dtype=torch.float32)
     gb = 0.1 * _randn(gen, c, dtype=torch.float32)

@@ -381,8 +381,9 @@ def test_task_engine_is_not_ready(weight_root):
     try:
         m.load_engines()
         listed, status = _ready_by_rpc_and_status(m)
+        # a depth engine (D2) is ready once the engines have loaded
         assert listed == status == {"gen": True, "up": False,
-                                    "depth": False}
+                                    "depth": True}
         with pytest.raises(NotImplementedError, match="ROADMAP D"):
             m.modelset("up")
     finally:
@@ -406,8 +407,8 @@ def test_nine_channel_engine_is_ready(weight_root):
 def test_shipped_config_reports_only_servable_engines_ready(shipped,
                                                             weight_root):
     """Every enabled engine of the shipped config/engines.yaml: the
-    4-channel SD 1.5 engine and the 9-channel inpainting engine are ready;
-    every task engine is not."""
+    4-channel SD 1.5 engine, the 9-channel inpainting engine and the MiDaS
+    depth engine are ready; every other task engine is not."""
     manager = tserver.build_manager(tserver.parse_args(
         ["--enginecfg", shipped, "--device", "cpu", "--dtype", "float32",
          "--weight_root", weight_root]))
@@ -419,8 +420,10 @@ def test_shipped_config_reports_only_servable_engines_ready(shipped,
                  if s.enabled and s.task != "generate"}
         assert {"esrgan-x4", "midas-depth", "mlsd-lines", "dexined-edge",
                 "lineart"} <= tasks
-        assert {i for i in enabled if status[i]} == {SD15, INPAINT}
-        assert {i for i in enabled if listed.get(i)} == {SD15, INPAINT}
+        assert {i for i in enabled if status[i]} == {SD15, INPAINT,
+                                                     "midas-depth"}
+        assert {i for i in enabled if listed.get(i)} == {SD15, INPAINT,
+                                                         "midas-depth"}
     finally:
         manager.dispatcher.stop()
 
@@ -486,3 +489,26 @@ def test_graft_engine_pipeline_grafts_the_named_engine(weight_root):
         assert m.pipeline("top").graft_ms is None
     finally:
         m.dispatcher.stop()
+
+
+def test_dropped_manager_frees_its_engines_without_the_cycle_collector(
+        weight_root):
+    """The hintsets hold the manager's loader through a weak reference, so
+    dropping the last reference to a manager frees its engines at once."""
+    import gc
+    import weakref
+
+    m = _manager([{"id": "gen", "model": {"preset": "test", "seed": 1}}],
+                 weight_root)
+    m.dispatcher.stop()
+    ms = weakref.ref(m.modelset("gen"))
+    with pytest.raises(KeyError, match="unknown model_id"):
+        m.hintsets.model_loader("@nope")     # reaches load_model_entry
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        del m
+        assert ms() is None
+    finally:
+        if enabled:
+            gc.enable()
