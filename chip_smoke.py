@@ -33,7 +33,10 @@ Phases, each printing one JSON object per line:
                adjust phase's (_adjust_shapes: DPT-Large's
                self-attention [1, T, 16, 64] at T = 257, 577, 1025, and
                the SD1.5 UNet's one-row shapes of cfg_sequential that no
-               other row has), summed on an "adjust_shapes" line
+               other row has), summed on an "adjust_shapes" line; and
+               at the hinters phase's (_hinter_shapes: UniFormer-S's
+               self-attention on a 512² image, [1, 1024, 5, 64] and
+               [1, 256, 8, 64]), summed on a "hinter_shapes" line
   4. pipeline  UnifiedPipeline on full-width SD1.5 (random weights from a
                seed): 512x512, 20 steps k_dpmpp_2m, CFG 7.5 (parallel),
                bf16, chunk_steps=10 with a stop_event, uint8 on the device.
@@ -120,6 +123,31 @@ Phases, each printing one JSON object per line:
                shuffle (launches 921 / 1308, depth + 24 K1; the depth one
                within 1 level of the same request in-process), requests
                to each depth engine; the plain and depth-hinted walls
+  5h. hinters  the hinter engines of config/engines/utility.yaml at their
+               published widths (random, seed 0, drawn on the card,
+               written to disk in the published layouts in bf16): HED,
+               informative drawings, DexiNed, the OpenPose body CPM,
+               UniFormer-S (upernet_global_small, 150 classes), BAE
+               (EfficientNet-B5) and M-LSD large, served by server.serve
+               beside SD1.5 with a hintset of SD1.5-width ControlNets:
+               each "real" and ready, its parameters, bytes and load
+               seconds; one estimate of the 512² image each (the median
+               wall of 3, peak memory, launches: 11 K1 for UniFormer,
+               none for the others), a traced HED and UniFormer estimate
+               (busy share, top device operations, no FFT or gemv); the
+               card's bf16 against the same weights in f32 on the CPU at
+               256² (HINTER_MAP_BOUND, HINTER_MAP_BOUNDS,
+               HINTER_CLASS_SHARE; pose's and M-LSD's maps, and their
+               decodes of the CPU's maps on the card equal to the CPU's,
+               also with the maps scaled to pass the thresholds); then
+               client.py's own request builders over gRPC:
+               --hint_from_image hed / sketch / segmentation / openpose /
+               keypose / normal (launches 921 / 1308 / 1308, segmentation
+               + 11 K1) against the plain hinted request, a request to
+               each engine (its PNG within one level of its in-process
+               map), the hed-hinted image within 1 level of the same
+               request in-process, and background-removal answering
+               UNIMPLEMENTED naming ROADMAP D3b
   5e. sd2      an EngineManager engine on the sd21 preset (OpenCLIP-H,
                linear projections, v-prediction; random, seed 0, bf16):
                768x768, 20 steps k_dpmpp_2m, CFG 7.5, batch 1,
@@ -173,12 +201,12 @@ Phases, each printing one JSON object per line:
                641 / 908 / 908), one Generate over gRPC, suggest_max_batch
 
 After each phase from 5 on it prints what the phase left allocated on the
-card. At the end it prints the sums of the mode, ControlNet and C5 rows,
-the "c5_paths" line (each sd2/sdxl request's launches and the sums over
-them of phase 3's kernel, plain, library and bound times), then, before
-the last line, the kernels table as one JSON object; the last line is
-{"ok": true, "device": {...}}. Any failed check raises and the script exits
-non-zero; without a CUDA device it exits non-zero at once.
+card. At the end it prints the sums of the mode, ControlNet, C5, adjust and
+hinter rows, the "c5_paths" line (each sd2/sdxl request's launches and the
+sums over them of phase 3's kernel, plain, library and bound times), then,
+before the last line, the kernels table as one JSON object; the last line
+is {"ok": true, "device": {...}}. Any failed check raises and the script
+exits non-zero; without a CUDA device it exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -645,6 +673,36 @@ def _adjust_shapes():
     return attns, convs
 
 
+# the hinters phase: each engine's estimate of the 512² test image on the
+# card; its bf16 maps against the same weights in f32 on the CPU at 256²
+# (the CPU's time); bounds: max abs diff over max |f32| for the continuous
+# maps (one bf16 rounding a layer through 13-50 layers of a random net;
+# a fault gives errors of order 1), and the share of pixels that keep
+# their class for the segmentation (near-ties of random logits flip).
+# The line-art net's InstanceNorm holds each of its 22 convs at unit
+# scale, so every layer's rounding stays relative to the end (0.0206 on
+# an H100 80GB HBM3 at 700.00 W, PERF.md): it is held to 3e-2
+HINTER_SIZE = 512
+HINTER_CPU_SIZE = 256
+HINTER_MAP_BOUND = 2e-2
+HINTER_MAP_BOUNDS = {"lineart": 3e-2}
+HINTER_CLASS_SHARE = 0.99
+
+
+def _hinter_shapes():
+    """K1 rows of the hinters phase that phase 3's other rows lack:
+    UniFormer-S's global self-attention on one 512² image, stage 3 at 1/16
+    (T = 1024, 5 heads of 64) and stage 4 at 1/32 (T = 256, 8 heads):
+    (name, B, H, Tq, Tk, d)."""
+    from gyre_tpu_torch.models import uniformer
+
+    cfg = uniformer.UNIFORMER_SMALL
+    return [(f"uniformer_s{si + 1}_{(HINTER_SIZE // stride) ** 2}", 1,
+             cfg.embed_dim[si] // cfg.head_dim,
+             (HINTER_SIZE // stride) ** 2, (HINTER_SIZE // stride) ** 2,
+             cfg.head_dim) for si, stride in ((2, 16), (3, 32))]
+
+
 # K2a alone at two shapes of a batch-8 call, where its launch differs from
 # batch 1's: (name, B, H=W, C, eps, launches per batch-8 call). The UNet
 # runs 16 rows (8 images x 2 CFG rows), the VAE 8.
@@ -839,6 +897,9 @@ def phase_kernels():
         attn_row(*shape, 0, adjust=True)
     for shape in adj_conv:
         conv_row(*shape, 0, adjust=True)
+    # the hinters phase's (UniFormer's attention), tagged apart
+    for shape in _hinter_shapes():
+        attn_row(*shape, 0, hinter=True)
     for name, b, hw, c, eps, launches in GN_BATCH8_SHAPES:
         # not in a batch-1 call: no launches of its per-call sums
         record_stats(name, b, hw, c, eps, 0,
@@ -2462,6 +2523,362 @@ def phase_adjust():
 
 
 
+# ------------------------------------------------------------ hinters
+
+# the hinter engines of config/engines/utility.yaml: (id, task, kind, the
+# published-layout exporter and loader of its model)
+def _hinter_table():
+    from gyre_tpu_torch.models import baenormal, hinters, mlsd, pose
+    from gyre_tpu_torch.models import uniformer as uni
+
+    def first(load):            # loaders that return (model, config)
+        return lambda state, **kw: load(state, **kw)[0]
+
+    return [
+        ("hed-edge", "edge", None, hinters.state_dict_hed,
+         hinters.load_hed, lambda: hinters.random_hed(0, device="cuda")),
+        ("lineart", "hinter", "lineart", hinters.state_dict_drawings,
+         hinters.load_drawings,
+         lambda: hinters.random_drawings(0, device="cuda")),
+        ("dexined-edge", "hinter", "dexined", hinters.state_dict_dexined,
+         hinters.load_dexined,
+         lambda: hinters.random_dexined(0, device="cuda")),
+        ("openpose", "pose", None, pose.state_dict_body, pose.load_body,
+         lambda: pose.random_body(0, device="cuda")),
+        ("segmentation", "segmentation", None, uni.state_dict_uniformer,
+         first(uni.load_uniformer),
+         lambda: uni.random_uniformer(uni.UNIFORMER_SMALL, 0,
+                                      device="cuda")),
+        ("bae-normal", "normal", "bae", baenormal.state_dict_baenormal,
+         first(baenormal.load_baenormal),
+         lambda: baenormal.random_baenormal(baenormal.EFFNET_B5, 0,
+                                            device="cuda")),
+        ("mlsd-lines", "hinter", "mlsd", mlsd.state_dict_mlsd,
+         mlsd.load_mlsd, lambda: mlsd.random_mlsd(0, device="cuda")),
+    ]
+
+
+def _hinter_vs_cpu(eid, model, load, export, x_np, failed):
+    """The card's bf16 maps of ``model`` against the same weights in f32 on
+    the CPU (loaded from its export): one line, the bound's failures
+    appended to ``failed``."""
+    import torch
+
+    from gyre_tpu_torch.models import mlsd, pose
+
+    cpu = load(export(model), dtype=torch.float32, device="cpu")
+    x_cpu = torch.from_numpy(x_np)
+    x_gpu = x_cpu.cuda()
+    line = {"phase": "hinters", "bf16_vs_f32_cpu": eid,
+            "size": HINTER_CPU_SIZE}
+
+    def rel(a, b):
+        a, b = a.float().cpu(), b.float()
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)
+
+    with torch.inference_mode():
+        if eid == "segmentation":
+            card = model.logits(x_gpu).argmax(-1).cpu()
+            ref = cpu.logits(x_cpu).argmax(-1)
+            share = float((card == ref).float().mean())
+            line.update(same_class_share=share, bound=HINTER_CLASS_SHARE,
+                        classes=int(ref.unique().numel()))
+            if share < HINTER_CLASS_SHARE:
+                failed.append(f"{eid}: {share} of pixels keep their class")
+        elif eid == "openpose":
+            maps_c = model(x_gpu)
+            maps = cpu(x_cpu)
+            errs = [rel(a, b) for a, b in zip(maps_c, maps)]
+            # the decoders on the CPU's maps, card against CPU: as they
+            # are, and each map scaled to a peak of 1 (random weights' maps
+            # stay far under the published thresholds, 0.1 and 0.05)
+            heat, pafs = maps
+            equal, limbs = True, 0
+            size = x_np.shape[1:3]
+            for h, p in ((heat, pafs), (
+                    heat / heat.amax(dim=(1, 2), keepdim=True),
+                    pafs / pafs.abs().amax(dim=(1, 2), keepdim=True))):
+                for style in ("openpose", "keypose"):
+                    a = pose.render_multi(h, p, *size, True, style=style)
+                    b = pose.render_multi(h.cuda(), p.cuda(), *size, True,
+                                          style=style)
+                    equal &= bool(torch.equal(a, b.cpu()))
+                xy, conf = pose.top_peaks(h, apply_sigmoid=False)
+                limbs = int(pose.match_limbs(xy[0], conf[0], p[0], 0.1)[2]
+                            .sum())
+            line.update(max_abs_diff_rel=errs, bound=HINTER_MAP_BOUND,
+                        decode_equal=equal, scaled_limbs=limbs,
+                        heat_max=float(heat.max()))
+            if max(errs) > HINTER_MAP_BOUND:
+                failed.append(f"{eid}: maps {errs} off the CPU's")
+            if not equal:
+                failed.append(f"{eid}: the card decodes the CPU's maps "
+                              "apart")
+        elif eid == "mlsd-lines":
+            def tp_of(m, x):
+                y = mlsd.resize(x.float(), (mlsd.INPUT_SIZE,) * 2,
+                                "bilinear") * 2.0 - 1.0
+                return m.tp_map(torch.cat([y, torch.ones_like(y[..., :1])],
+                                          -1))
+
+            tp_c, tp = tp_of(model, x_gpu), tp_of(cpu, x_cpu)
+            err = rel(tp_c, tp)
+            # the decode of the CPU's heat (after the sigmoid, whose last
+            # bit differs between devices) and displacements, card against
+            # CPU: as they are, and with the displacements scaled to 8 px
+            # at most (random weights' segments stay under the published
+            # 0.1 px length)
+            heat, disp = mlsd.nms_heat(tp[..., 7]), tp[..., 8:12]
+            size = x_np.shape[1:3]
+            equal, valid_n = True, []
+            for d in (disp, disp * (8.0 / float(disp.abs().max()))):
+                segs, valid, _ = mlsd.decode(heat, d)
+                segs_c, valid_c, _ = mlsd.decode(heat.cuda(), d.cuda())
+                ren = mlsd.render_segments(segs, valid, *size)
+                ren_c = mlsd.render_segments(segs_c, valid_c, *size).cpu()
+                equal &= bool(torch.equal(ren, ren_c) and
+                              torch.equal(valid, valid_c.cpu()))
+                valid_n.append(int(valid.sum()))
+            line.update(max_abs_diff_rel=err, bound=HINTER_MAP_BOUND,
+                        decode_equal=equal, valid_segments=valid_n)
+            if err > HINTER_MAP_BOUND:
+                failed.append(f"{eid}: map {err} off the CPU's")
+            if not equal:
+                failed.append(f"{eid}: the card decodes the CPU's map apart")
+        else:
+            err = rel(model(x_gpu), cpu(x_cpu))
+            bound = HINTER_MAP_BOUNDS.get(eid, HINTER_MAP_BOUND)
+            line.update(max_abs_diff_rel=err, bound=bound)
+            if err > bound:
+                failed.append(f"{eid}: map {err} off the CPU's")
+    del cpu
+    emit(line)
+
+
+def phase_hinters():
+    """The D3 hinter engines at full width from disk: load, an estimate
+    each with its launches, memory and walls, the card's bf16 against the
+    CPU's f32, client.py's hint conversions and requests to each engine
+    over gRPC, and background removal's UNIMPLEMENTED."""
+    import os
+    import shutil
+    import tempfile
+
+    import grpc
+    import numpy as np
+    import torch
+
+    from gyre_tpu_torch import _build
+    from gyre_tpu_torch.models import configs, load, uniformer
+    from gyre_tpu_torch.ops import images as I
+
+    t_phase = time.perf_counter()
+    failed = []
+    ucfg = configs.SD15.unet
+    size = HINTER_SIZE
+    k1_uni = sum(uniformer.UNIFORMER_SMALL.layers[2:])   # one a SA block
+    img_np = _mode_inputs(size)[0]
+    table = _hinter_table()
+    tmp = tempfile.mkdtemp(prefix="gyre-smoke-hinters-")
+    manager = serving = channel = None
+    try:
+        # --- full-width random models (seed 0, drawn on the card) in their
+        # published layouts, bf16 on disk
+        paths, sizes = {}, {}
+        t0 = time.perf_counter()
+        for eid, _, _, export, _, make in table:
+            model = make()
+            state = {k: torch.from_numpy(v).to(torch.bfloat16)
+                     for k, v in export(model).items()}
+            paths[eid] = os.path.join(tmp, f"{eid}.safetensors")
+            load.write_safetensors(paths[eid], state)
+            sizes[eid] = (sum(p.numel() for p in model.parameters()),
+                          os.path.getsize(paths[eid]))
+            del model, state
+        cn_path = os.path.join(tmp, "cn.safetensors")
+        load.write_safetensors(cn_path, load.export_controlnet_state(
+            _live_controlnet(ucfg, 1), ucfg))
+        emit({"phase": "hinters", "checkpoints_s": time.perf_counter() - t0})
+        types = ("hed", "sketch", "segmentation", "openpose", "keypose",
+                 "normal")
+        manager, serving, tmp2 = _serve_yaml(
+            "- {id: sd15, default: true, hintset: hs, model: {preset: "
+            "sd15, seed: 0}}\n" + "".join(
+                f"- {{id: {eid}, task: {task}, "
+                + (f"kind: {kind}, " if kind else "")
+                + f"model: {paths[eid]}}}\n"
+                for eid, task, kind, *_ in table)
+            + "- {id: background-removal, task: background_removal}\n"
+            f"- {{model_id: smoke-cn, model: {cn_path}}}\n"
+            "- {hintset_id: hs, " + ", ".join(
+                f"controlnet/{t}: {{aliases: [{t}], model: '@smoke-cn'}}"
+                for t in types) + "}\n")
+        shutil.rmtree(tmp2, ignore_errors=True)
+        runs = {}
+        for eid, task, *_ in table:
+            t0 = time.perf_counter()
+            runs[eid] = manager.task_pipeline(task, eid)
+            torch.cuda.synchronize()
+            model = runs[eid].models[0]
+            emit({"phase": "hinters", "engine": eid,
+                  "load_s": time.perf_counter() - t0,
+                  "params": sizes[eid][0], "file_bytes": sizes[eid][1],
+                  "model": type(model).__name__, "dtype": str(model.dtype)})
+        status = {s["id"]: (s["ready"], s["weights"])
+                  for s in manager.status()}
+        emit({"phase": "hinters", "status": status})
+        for eid, *_ in table:
+            if status[eid] != (True, "real"):
+                failed.append(f"{eid}: status {status[eid]}")
+        if status["background-removal"][0]:
+            failed.append("background-removal reported ready")
+
+        # --- one estimate of the 512² image each: launches, peak memory,
+        # the median wall of 3; a traced estimate of HED and UniFormer
+        x = torch.from_numpy(img_np).cuda()
+        for eid, *_ in table:
+            run = runs[eid]
+            run(x)                                        # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            _build.reset_launches()
+            out = run(x)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in _build.launches.items() if v}
+            expect = {"flash_attention": k1_uni} \
+                if eid == "segmentation" else {}
+            wall = _median_wall(lambda: run(x), 3)[0]
+            line = {"phase": "hinters", "estimate": eid, "wall_s": wall,
+                    "peak_bytes": torch.cuda.max_memory_allocated(),
+                    "peak_over_weights_bytes":
+                        torch.cuda.max_memory_allocated() - base,
+                    "launches": launches, "expected_launches": expect,
+                    "shape": list(out.shape),
+                    "finite": bool(out.isfinite().all()),
+                    "min": float(out.min()), "max": float(out.max()),
+                    "std": float(out.float().std())}
+            if eid in ("hed-edge", "segmentation"):
+                prof = _device_profile(lambda: run(x))
+                prof["busy_share"] = prof["device_busy_s"] / \
+                    prof["traced_wall_s"]
+                line.update(prof)
+                slow = [n for n, *_ in prof["top_device_ms"]
+                        if "fft" in n.lower() or "gemv" in n.lower()]
+                if slow:
+                    failed.append(f"{eid}: {slow} among the top device "
+                                  "operations")
+            emit(line)
+            failed.extend(f"estimate {eid}: {what}" for what, bad in (
+                (f"launches {launches} != {expect}", launches != expect),
+                ("shape", line["shape"] != [1, size, size, 3]),
+                ("not finite", not line["finite"]),
+                ("out of [0, 1]", line["min"] < 0 or line["max"] > 1)) if bad)
+
+        # --- the card's bf16 against the same weights in f32 on the CPU
+        x_small = _mode_inputs(HINTER_CPU_SIZE)[0]
+        for eid, _, _, export, load_fn, _ in table:
+            _hinter_vs_cpu(eid, runs[eid].models[0], load_fn, export,
+                           x_small, failed)
+
+        # --- client.py's requests over gRPC
+        ns = _client_builders()
+        channel, generate = _grpc_generate(serving.grpc_port)
+        hint_path = os.path.join(tmp, "hint.png")
+        with open(hint_path, "wb") as fh:
+            fh.write(I.encode_png(img_np[0]))
+        argv = [REQUEST["prompt"], "-n", REQUEST["negative_prompt"],
+                "--host", "localhost:1", "-W", str(size), "-H", str(size),
+                "--steps", str(STEPS), "-s", "k_dpmpp_2m", "-S", "61"]
+        cases = {"plain_hint": ["-e", "sd15", "--hint", f"hed:{hint_path}"],
+                 **{f"hint_from_image_{t}": [
+                     "-e", "sd15", "--hint_from_image", f"{t}:{hint_path}"]
+                    for t in types},
+                 **{f"engine_{eid}": ["-e", eid, "-i", hint_path]
+                    for eid, *_ in table}}
+        hinted = {"flash_attention": 921, "gn_stats": 1308,
+                  "gn_silu_conv3x3": 1308}
+        expect = {name: hinted for name in cases}
+        expect["hint_from_image_segmentation"] = dict(
+            hinted, flash_attention=921 + k1_uni)
+        for eid, *_ in table:
+            expect[f"engine_{eid}"] = {"flash_attention": k1_uni} \
+                if eid == "segmentation" else {}
+        reqs = {name: _client_request(ns, argv + a)
+                for name, a in cases.items()}
+        images, walls = {}, {name: [] for name in cases}
+        for name, req in reqs.items():
+            generate(req)                                # warm-up
+        for r in range(2):              # timed in order, then reversed
+            for name in (list(reqs) if r == 0 else list(reqs)[::-1]):
+                _build.reset_launches()
+                t0 = time.perf_counter()
+                images[name] = got = generate(reqs[name])
+                walls[name].append(time.perf_counter() - t0)
+                if r:
+                    continue
+                launches = {k: v for k, v in _build.launches.items() if v}
+                emit({"phase": "hinters", "grpc": name,
+                      "launches": launches, "expected_launches":
+                          expect[name], "shape": list(got.shape)})
+                failed.extend(f"gRPC {name}: {what}" for what, bad in (
+                    (f"launches {launches} != {expect[name]}",
+                     launches != expect[name]),
+                    (f"shape {got.shape}", got.shape != (size, size, 3)),
+                    ("constant image", name.startswith("hint") and
+                     got.min() == got.max())) if bad)
+        emit({"phase": "hinters", "check": "grpc_walls", "walls_s": walls,
+              "wall_s": {k: sum(v) / len(v) for k, v in walls.items()}})
+        # each engine's answer against its in-process map of the decoded
+        # upload, and the hed-hinted image against the same request
+        # in-process (its hint the edge engine's map)
+        upload = torch.from_numpy(I.decode_png(I.encode_png(img_np[0])))
+        diffs = {}
+        for eid, *_ in table:
+            want = runs[eid](upload.cuda())[0].clamp(0, 1).cpu().numpy()
+            diffs[eid] = float(np.abs(images[f"engine_{eid}"] / 255.0 -
+                                      want).max())
+        hint = runs["hed-edge"](upload.cuda())
+        want = manager.dispatch_view("sd15").pipe(**dict(
+            REQUEST, seeds=[61], output_dtype="uint8", chunk_steps=10,
+            stop_event=threading.Event(), hints=[{
+                "params": manager.hint_model("hed", "sd15")["params"],
+                "kind": "controlnet", "image": hint.cpu().numpy(),
+                "scale": 1.0}]))[0].cpu().numpy()
+        diffs["hint_from_image_hed"] = int(np.abs(
+            images["hint_from_image_hed"].astype(int) -
+            want.astype(int)).max())
+        emit({"phase": "hinters", "check": "grpc_equals_in_process",
+              "max_diff": diffs})
+        for name, d in diffs.items():
+            if d > (1 if name.startswith("hint") else 1.0 / 255 + 1e-6):
+                failed.append(f"{name}: {d} off the in-process image")
+        # background removal (InSPyReNet) is not ported: UNIMPLEMENTED
+        try:
+            generate(_client_request(ns, argv + [
+                "-e", "background-removal", "-i", hint_path]))
+            failed.append("background-removal answered an image")
+        except grpc.RpcError as e:
+            emit({"phase": "hinters", "check": "background_removal",
+                  "code": str(e.code()), "details": e.details()})
+            if e.code() != grpc.StatusCode.UNIMPLEMENTED or \
+                    "ROADMAP D3b" not in (e.details() or ""):
+                failed.append(f"background-removal answered {e.code()}: "
+                              f"{e.details()}")
+    finally:
+        if channel is not None:
+            channel.close()
+        if serving is not None:
+            serving.stop(0)
+        if manager is not None:
+            manager.dispatcher.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    emit({"phase": "hinters", "phase_s": time.perf_counter() - t_phase})
+    if failed:
+        raise AssertionError("hinters: " + "; ".join(failed))
+
+
 # ------------------------------------------------------------- SD2, SDXL
 
 
@@ -3412,8 +3829,8 @@ def main() -> int:
     # dropped EngineManager frees its engines at once; the collection guards
     # against a cycle that would keep one)
     for phase in (phase_samplers, phase_modes, phase_adapters, phase_hints,
-                  phase_adjust, phase_sd2, phase_sdxl, phase_serve,
-                  phase_http, phase_weights):
+                  phase_adjust, phase_hinters, phase_sd2, phase_sdxl,
+                  phase_serve, phase_http, phase_weights):
         phase()
         gc.collect()
         torch.cuda.empty_cache()
@@ -3435,11 +3852,13 @@ def main() -> int:
                 "bound_by": max(by, key=by.get)}
 
     rows, mode_rows, cn_rows, c5_rows, adj_rows = [], [], [], [], []
+    hint_rows = []
     for name, source, replaces in KERNEL_TABLE:
         rs = [r for r in kernels[name] if not r.get("modes") and
               not r.get("controlnet") and not r.get("c5") and
-              not r.get("adjust")]
+              not r.get("adjust") and not r.get("hinter")]
         adj_rs = [r for r in kernels[name] if r.get("adjust")]
+        hint_rs = [r for r in kernels[name] if r.get("hinter")]
         mode_rs = [r for r in kernels[name] if r.get("modes")]
         cn_rs = [r for r in kernels[name] if r.get("controlnet")]
         c5_rs = [r for r in kernels[name] if r.get("c5")]
@@ -3459,10 +3878,14 @@ def main() -> int:
         if adj_rs:                  # K2a/K2b rows only where a shape is new
             adj_rows.append({"name": name, "shapes": len(adj_rs),
                              **summary(adj_rs)})
+        if hint_rs:                 # K1 only: no hinter runs K2
+            hint_rows.append({"name": name, "shapes": len(hint_rs),
+                              **summary(hint_rs)})
     emit({"mode_shapes": mode_rows})
     emit({"controlnet_shapes": cn_rows})
     emit({"c5_shapes": c5_rows})
     emit({"adjust_shapes": adj_rows})
+    emit({"hinter_shapes": hint_rows})
     emit({"c5_paths": {name: _path_sums(kernels, parts)
                        for name, parts in _c5_paths().items()}})
     emit({"kernels": rows})

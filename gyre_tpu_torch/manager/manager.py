@@ -476,17 +476,41 @@ class EngineManager:
             _unported(f"engine {spec.id}: task {spec.task!r}", "D4")
         return None
 
-    def _build_hinter(self, spec: EngineSpec):
-        """A depth engine's pipeline: MiDaS DPT, or ZoeDepth's head over
-        a DPT trunk. A checkpoint that resolves and does not load raises."""
-        from ..models import dpt
-        from ..models import zoedepth as zoe
+    # the hinter kinds a task engine's ``kind:`` (else its task) names
+    _DEPTH_KINDS = ("depth", "midas", "dpt", "zoe", "zoedepth")
+    _HINTER_KINDS = _DEPTH_KINDS + (
+        "segmentation", "seg", "uniformer", "normal", "bae", "baenormal",
+        "pose", "openpose", "keypose", "mlsd", "lines", "dexined",
+        "drawings", "informative_drawings", "lineart", "edge", "hinter",
+        "hed", "soft_edge")
 
+    def _build_hinter(self, spec: EngineSpec):
+        """A hinter engine's pipeline: a callable image [B,H,W,C] in [0,1]
+        -> [B,H,W,3] f32 on the manager's device (pose's also takes
+        ``style=``). Depth (MiDaS DPT, ZoeDepth over a DPT trunk), HED
+        edges, informative-drawings line art, DexiNed edges, OpenPose
+        (the body CPM from a checkpoint, else the small PoseNet; top-down
+        refinement unless ``refine: none``), UniFormer segmentation, BAE
+        normals and M-LSD lines; the models random-init at the JAX
+        package's sizes without a checkpoint. A checkpoint that resolves
+        and does not load raises (where the JAX package random-inits a
+        DexiNed or a ZoeDepth trunk). Background removal (InSPyReNet) is
+        not ported yet; an unknown kind has no pipeline (None)."""
         kind = spec.params.get("kind") or spec.task
         seed = int(spec.params.get("seed", 0))
         dtype, device = self.compute_dtype, self.device
+        if kind in ("background_removal", "bg", "inspyrenet"):
+            _unported(f"engine {spec.id}: task {spec.task!r} (kind "
+                      f"{kind!r})", "D3b")
+        if kind not in self._HINTER_KINDS:
+            return None
+        state = self.spec_state_dict(spec)
+        run = None
+        size = None
         if kind in ("zoe", "zoedepth"):
-            state = self.spec_state_dict(spec)
+            from ..models import dpt
+            from ..models import zoedepth as zoe
+
             trunk_cfg = dpt.DPT_TEST
             trunk = head = None
             if state is not None:
@@ -508,13 +532,13 @@ class EngineManager:
                 self._weights_kind[spec.id] = "random"
             size = int(spec.params.get("size",
                                        trunk_cfg.grid * trunk_cfg.patch))
-
             models = (trunk, head)
 
             def estimate(img):
                 return zoe.estimate_depth_hint(trunk, head, img, size)
         elif kind in ("depth", "midas", "dpt"):
-            state = self.spec_state_dict(spec)
+            from ..models import dpt
+
             if state is not None:
                 model, cfg = dpt.load_dpt(state, dtype=dtype, device=device)
                 size = int(spec.params.get("size", cfg.grid * cfg.patch))
@@ -522,19 +546,69 @@ class EngineManager:
                 cfg = dpt.DPT_TEST
                 model = dpt.random_dpt(cfg, seed, dtype=dtype, device=device)
                 size = cfg.grid * cfg.patch
-
             models = (model,)
 
             def estimate(img):
                 return dpt.estimate_depth(model, img, size)
-        else:
-            _unported(f"engine {spec.id}: task {spec.task!r} (kind "
-                      f"{kind!r})", "D3")
+        elif kind in ("segmentation", "seg", "uniformer"):
+            from ..models import uniformer as uni
 
-        def run(img):
-            img = torch.as_tensor(img).to(device, torch.float32)
-            with torch.inference_mode():
-                return estimate(img).repeat(1, 1, 1, 3)
+            model = uni.load_uniformer(state, dtype, device)[0] \
+                if state is not None else uni.random_uniformer(
+                    uni.UNIFORMER_TEST, seed, dtype, device)
+            models, estimate = (model,), model
+        elif kind in ("normal", "bae", "baenormal"):
+            from ..models import baenormal as bae
+
+            model = bae.load_baenormal(state, dtype, device)[0] \
+                if state is not None else bae.random_baenormal(
+                    bae.EFFNET_TEST, seed, dtype, device)
+            models, estimate = (model,), model
+        elif kind in ("pose", "openpose", "keypose"):
+            from ..models import pose
+
+            model = pose.load_body(state, dtype, device) \
+                if state is not None else pose.random_posenet(seed, dtype,
+                                                              device)
+            models = (model,)
+            if str(spec.params.get("refine", "topdown")) != "none":
+                render = pose.make_topdown(model)
+            else:
+                def render(img, style="openpose"):
+                    return pose.estimate_and_render(model, img, style=style)
+
+            def run(img, style: str = "openpose"):
+                img = torch.as_tensor(img).to(device, torch.float32)
+                with torch.inference_mode():
+                    return render(img, style=style)
+        elif kind in ("mlsd", "lines"):
+            from ..models import mlsd
+
+            model = mlsd.load_mlsd(state, dtype, device) \
+                if state is not None else mlsd.random_mlsd(seed, dtype,
+                                                           device)
+            models, estimate = (model,), model
+        else:
+            from ..models import hinters
+
+            load, rand = {
+                "dexined": (hinters.load_dexined, hinters.random_dexined),
+                "drawings": (hinters.load_drawings, hinters.random_drawings),
+                "informative_drawings": (hinters.load_drawings,
+                                         hinters.random_drawings),
+                "lineart": (hinters.load_drawings, hinters.random_drawings),
+            }.get(kind, (hinters.load_hed, hinters.random_hed))
+            model = load(state, dtype=dtype, device=device) \
+                if state is not None else rand(seed, dtype=dtype,
+                                               device=device)
+            models, estimate = (model,), model
+
+        if run is None:
+            def run(img):
+                img = torch.as_tensor(img).to(device, torch.float32)
+                with torch.inference_mode():
+                    out = estimate(img)
+                return out if out.shape[-1] == 3 else out.repeat(1, 1, 1, 3)
 
         run.models, run.size = models, size     # what it runs, at what size
         return run
@@ -714,13 +788,15 @@ class EngineManager:
         family (SD1.x, SD2, SDXL and its refiner: a UNet with class or
         scale-shift conditioning does not build) once its weights are
         resident, its UNet taking 4 input channels (txt2img and every
-        mode), 9 (inpainting) or 5 (depth2img); a depth engine (DPT or
-        ZoeDepth), which loads at first use, once the engines have loaded,
-        as in the JAX package. Other task engines (ROADMAP D3, D4) are not
+        mode), 9 (inpainting) or 5 (depth2img); a hinter engine (depth,
+        edge, line art, pose, segmentation, normals, lines), which loads at
+        first use, once the engines have loaded, as in the JAX package.
+        Background removal (ROADMAP D3b) and the upscalers (D4) are not
         ready, since each of their requests would answer UNIMPLEMENTED."""
-        if spec.task == "depth":
-            return self._loaded and spec.params.get("kind", "depth") in (
-                "depth", "midas", "dpt", "zoe", "zoedepth")
+        if spec.task in ("depth", "edge", "hinter", "pose", "segmentation",
+                         "normal"):
+            return self._loaded and \
+                (spec.params.get("kind") or spec.task) in self._HINTER_KINDS
         ms = self._modelsets.get(spec.id)
         if spec.task != "generate" or ms is None:
             return False

@@ -44,6 +44,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import attention
+from .layers import conv_nchw, nchw, nhwc
 
 
 @dataclass(frozen=True)
@@ -98,39 +99,8 @@ def resize_bilinear(x, size, align_corners: bool = False):
     return top * (1 - wy) + bot * wy
 
 
-def _same_pad(n: int, k: int, s: int) -> tuple[int, int]:
-    """XLA's "SAME" padding of one axis: (before, after)."""
-    out = -(-n // s)
-    total = max((out - 1) * s + k - n, 0)
-    return total // 2, total - total // 2
-
-
-def _conv(conv: nn.Conv2d, x, stride: int = 1):
-    """conv over x (NCHW shape, channels-last memory, cuDNN's layout for
-    its tensor-core kernels) with "SAME" padding, its weight and bias in
-    x's dtype."""
-    kh, kw = conv.weight.shape[2:]
-    ph, pw = _same_pad(x.shape[2], kh, stride), _same_pad(x.shape[3], kw,
-                                                          stride)
-    pad = (ph[0], pw[0])
-    if ph[0] != ph[1] or pw[0] != pw[1]:         # asymmetric: pad apart
-        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        pad = (0, 0)
-    x = x.contiguous(memory_format=torch.channels_last)
-    bias = None if conv.bias is None else conv.bias.to(x.dtype)
-    return F.conv2d(x, conv.weight.to(x.dtype), bias, stride, pad)
-
-
-def _nhwc(x):
-    return x.permute(0, 2, 3, 1)
-
-
-def _nchw(x):
-    return x.permute(0, 3, 1, 2)
-
-
 def _resize_nchw(x, size, align_corners: bool = False):
-    return _nchw(resize_bilinear(_nhwc(x), size, align_corners))
+    return nchw(resize_bilinear(nhwc(x), size, align_corners))
 
 
 class _Block(nn.Module):
@@ -172,13 +142,13 @@ class _Reassemble(nn.Module):
             self.resize = nn.Conv2d(ch, ch, 3)
 
     def forward(self, x):
-        x = _conv(self.proj, x)
+        x = conv_nchw(self.proj, x)
         if self.level in (0, 1):
             return F.conv_transpose2d(x, self.resize.weight.to(x.dtype),
                                       self.resize.bias.to(x.dtype),
                                       stride=self.resize.stride)
         if self.level == 3:
-            return _conv(self.resize, x, stride=2)
+            return conv_nchw(self.resize, x, stride=2)
         return x
 
 
@@ -191,7 +161,7 @@ class _Fusion(nn.Module):
 
     @staticmethod
     def _unit(c1, c2, x):
-        return x + _conv(c2, F.relu(_conv(c1, F.relu(x))))
+        return x + conv_nchw(c2, F.relu(conv_nchw(c1, F.relu(x))))
 
     def forward(self, fused, lateral):
         if fused is None:
@@ -203,7 +173,7 @@ class _Fusion(nn.Module):
         fused = self._unit(self.r2c1, self.r2c2, fused)
         fused = _resize_nchw(fused, (fused.shape[2] * 2, fused.shape[3] * 2),
                              align_corners=True)
-        return _conv(self.proj, fused)
+        return conv_nchw(self.proj, fused)
 
 
 class _Head(nn.Module):
@@ -251,7 +221,7 @@ class DPT(nn.Module):
         cfg = self.cfg
         b, hh, ww, _ = x.shape
         gh, gw = hh // cfg.patch, ww // cfg.patch
-        tok = F.conv2d(_nchw(x.to(self.dtype)), self.patch.weight,
+        tok = F.conv2d(nchw(x.to(self.dtype)), self.patch.weight,
                        self.patch.bias, stride=cfg.patch)
         tok = tok.flatten(2).transpose(1, 2)
         seq = torch.cat([self.cls.expand(b, 1, cfg.hidden).to(tok.dtype),
@@ -278,9 +248,9 @@ class DPT(nn.Module):
             cls, tokens = seq[:, :1], seq[:, 1:]
             t = F.gelu(self.readout[i](
                 torch.cat([tokens, cls.expand_as(tokens)], dim=-1)))
-            fmap = _nchw(t.reshape(t.shape[0], gh, gw, t.shape[-1]))
+            fmap = nchw(t.reshape(t.shape[0], gh, gw, t.shape[-1]))
             fmap = self.reassemble[i](fmap)
-            feats.append(_conv(self.convs[i], fmap))
+            feats.append(conv_nchw(self.convs[i], fmap))
         fused, out = None, []
         for block, lateral in zip(self.fusion, feats[::-1]):
             fused = block(fused, lateral)
@@ -301,15 +271,15 @@ class DPT(nn.Module):
         # the first conv in the trunk's dtype (cuDNN runs an f32 3x3 conv
         # at 192² as an FFT, a matrix-vector product a frequency bin: ~100
         # ms on the card), the last two in f32
-        y = _conv(hd.c0, fused[-1])
+        y = conv_nchw(hd.c0, fused[-1])
         y = _resize_nchw(y, (y.shape[2] * 2, y.shape[3] * 2),
                          align_corners=True)
-        out_conv = F.relu(_conv(hd.c2, y.float()))
-        y = F.relu(_conv(hd.c4, out_conv))
-        return {"rel_depth": _nhwc(y), "out_conv": _nhwc(out_conv),
-                "l4_rn": _nhwc(laterals[3]),
-                "r4": _nhwc(fused[0]), "r3": _nhwc(fused[1]),
-                "r2": _nhwc(fused[2]), "r1": _nhwc(fused[3])}
+        out_conv = F.relu(conv_nchw(hd.c2, y.float()))
+        y = F.relu(conv_nchw(hd.c4, out_conv))
+        return {"rel_depth": nhwc(y), "out_conv": nhwc(out_conv),
+                "l4_rn": nhwc(laterals[3]),
+                "r4": nhwc(fused[0]), "r3": nhwc(fused[1]),
+                "r2": nhwc(fused[2]), "r1": nhwc(fused[3])}
 
     def forward(self, x):
         """Normalised image [B,H,W,3] (H, W multiples of the patch) ->

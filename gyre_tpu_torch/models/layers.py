@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -204,3 +205,104 @@ def fused_norm_spec(c: int) -> Params:
     """GroupNorm in front of a fused conv: scale and bias f32."""
     return {"scale": Spec("norm_scale", (c,), f32=True),
             "bias": Spec("bias", (c,), f32=True)}
+
+
+# ------------------------------------------------- task models (nn.Module)
+# The hinter models (models/{hinters,pose,uniformer,baenormal,mlsd}.py) are
+# ``nn.Module``s whose parameter names follow the JAX package's params
+# trees; they run NCHW with channels-last memory, cuDNN's layout for its
+# tensor-core kernels.
+
+
+def nchw(x):
+    return x.permute(0, 3, 1, 2)
+
+
+def nhwc(x):
+    return x.permute(0, 2, 3, 1)
+
+
+def same_padding(n: int, k: int, stride: int = 1, dilation: int = 1):
+    """XLA's "SAME" padding of one axis, (before, after): the odd pixel of
+    a stride-2 conv over an even size goes at the end."""
+    k = (k - 1) * dilation + 1
+    out = -(-n // stride)
+    total = max((out - 1) * stride + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def conv_nchw(conv, x, stride: int = 1, padding="SAME", dilation: int = 1):
+    """``conv`` (an nn.Conv2d) over x [B,C,H,W] in x's dtype, as the JAX
+    package's ``conv2d`` pads: "SAME" (XLA's rule), "VALID", an int for
+    every side, or ((top, bottom), (left, right)). Asymmetric padding is
+    applied apart, zeros. Groups come from the module."""
+    kh, kw = conv.weight.shape[2:]
+    if padding == "SAME":
+        ph = same_padding(x.shape[2], kh, stride, dilation)
+        pw = same_padding(x.shape[3], kw, stride, dilation)
+    elif padding == "VALID":
+        ph = pw = (0, 0)
+    elif isinstance(padding, int):
+        ph = pw = (padding, padding)
+    else:
+        ph, pw = padding
+    pad = (ph[0], pw[0])
+    if ph[0] != ph[1] or pw[0] != pw[1]:
+        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+        pad = (0, 0)
+    x = x.contiguous(memory_format=torch.channels_last)
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    return F.conv2d(x, conv.weight.to(x.dtype), bias, stride, pad, dilation,
+                    conv.groups)
+
+
+def conv1x1_f32(conv, x):
+    """A 1x1 conv over NHWC x as a product over the channel axis, in f32
+    whatever the module's and x's dtype: the maps a threshold or an argmax
+    reads."""
+    w = conv.weight.float()[:, :, 0, 0]
+    b = None if conv.bias is None else conv.bias.float()
+    return F.linear(x.float(), w, b)
+
+
+def linspace(stop: float, n: int, device=None):
+    """``jnp.linspace(0, stop, n)`` as XLA computes it, f32: i * (stop *
+    (1 / (n - 1))), the last point ``stop`` itself (torch.linspace rounds
+    differently, and a rasteriser's thresholds see the last bit)."""
+    if n == 1:
+        return torch.zeros(1, device=device)
+    step = np.float32(stop) * (np.float32(1.0) / np.float32(n - 1))
+    i = torch.arange(n - 1, dtype=torch.float32, device=device)
+    return torch.cat([i * float(step),
+                      torch.full((1,), float(stop), device=device)])
+
+
+def random_init(model, seed: int):
+    """Random weights for a task model from a generator seeded ``seed`` on
+    the model's device (a full-width model built on the card draws its
+    weights there in a fraction of a second): conv and linear weights
+    uniform in +-1/sqrt(fan_in) (the JAX package's conv_init and
+    linear_init; fan_in: the inputs a weight sees, a transposed conv's
+    in-channels x taps), biases zero, norm scales one and shifts zero."""
+    import torch.nn as nn
+
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    norms = (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm2d)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            owner = model.get_submodule(name.rsplit(".", 1)[0]) \
+                if "." in name else model
+            if isinstance(owner, norms):
+                p.fill_(1.0 if name.endswith("weight") else 0.0)
+            elif name.endswith("bias"):
+                p.zero_()
+            else:
+                if isinstance(owner, nn.ConvTranspose2d):
+                    fan_in = p.shape[0] * p.shape[2] * p.shape[3]
+                else:
+                    fan_in = int(np.prod(p.shape[1:]))
+                lim = 1.0 / math.sqrt(fan_in)
+                p.copy_((torch.rand(p.shape, generator=gen, device=dev) * 2
+                         - 1) * lim)
+    return model

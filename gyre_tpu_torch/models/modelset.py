@@ -273,25 +273,39 @@ def from_jax_params(unet_params, vae_params, text_params,
 
 def _module_from_jax(model, params, name: str):
     """Fill an nn.Module whose parameter names follow a JAX params tree
-    (``blocks.3.q.weight`` from ``params["blocks"][3]["q"]["w"]``) leaf by
-    leaf, in torch's layouts: linear (in, out) -> (out, in), conv HWIO ->
-    OIHW, transposed conv (kh, kw, in, out) -> (in, out, kh, kw). A leaf
-    the module lacks, or one it has that the tree lacks, raises."""
+    (``blocks.3.q.weight`` from ``params["blocks"][3]["q"]["w"]``; a
+    digit names a list index, or a dict key such as DexiNed's
+    ``pre["3"]``) leaf by leaf, in torch's layouts: linear (in, out) ->
+    (out, in), conv HWIO -> OIHW, transposed conv (kh, kw, in, out) ->
+    (in, out, kh, kw); a norm's "scale" and "bias" as they are. A leaf the
+    module lacks, or one it has that the tree lacks, raises."""
     import torch.nn as nn
 
     from . import dpt
 
-    suffix = {"weight": ("w", "g"), "bias": ("b",)}
+    suffix = {"weight": ("w", "g", "scale"), "bias": ("b", "bias")}
     consumed = set()
+
+    def walk(path):
+        node, out = params, []
+        for part in path:
+            if isinstance(node, (list, tuple)):
+                part = int(part)
+            elif isinstance(node, dict) and part not in node and \
+                    str(part).isdigit() and int(part) in node:
+                part = int(part)
+            node = node[part]
+            out.append(part)
+        return node, tuple(out)
 
     def fetch(pname):
         *mods, kind = pname.split(".")
         owner = model.get_submodule(".".join(mods)) if mods else model
         for leaf in suffix.get(kind, (kind,)) if mods else (kind,):
-            path = tuple(int(p) if p.isdigit() else p for p in mods) + (leaf,)
             try:
-                a = np.array(_get(params, path), dtype=np.float32)
-            except (KeyError, IndexError, TypeError):
+                node, path = walk(tuple(mods) + (leaf,))
+                a = np.array(node, dtype=np.float32)
+            except (KeyError, IndexError, TypeError, ValueError):
                 continue
             consumed.add(path)
             if kind == "weight" and isinstance(owner, nn.Linear):
@@ -327,3 +341,88 @@ def zoe_head_from_jax(params, cfg, *, device="cuda"):
 
     return _module_from_jax(zoedepth.ZoeHead(cfg), params,
                             "zoedepth head").to(torch.device(device))
+
+
+# ------------------------------------------------------ hinter engines (D3)
+
+
+def hed_from_jax(params, *, dtype=torch.float32, device="cuda"):
+    """The JAX package's HED params tree (numpy) -> the port's HED, as
+    strict as from_jax_params (so are the bridges below)."""
+    from . import hinters
+
+    return _module_from_jax(hinters.HED(), params, "hed").to_compute(
+        dtype, torch.device(device))
+
+
+def drawings_from_jax(params, *, dtype=torch.float32, device="cuda"):
+    from . import hinters
+
+    model = hinters.Drawings(len(params["blocks"]),
+                             int(np.shape(params["stem"]["w"])[-1]))
+    return _module_from_jax(model, params, "drawings").to_compute(
+        dtype, torch.device(device))
+
+
+def dexined_from_jax(params, *, dtype=torch.float32, device="cuda"):
+    from . import hinters
+
+    return _module_from_jax(hinters.DexiNed(), params, "dexined").to_compute(
+        dtype, torch.device(device))
+
+
+def pose_body_from_jax(params, *, dtype=torch.float32, device="cuda"):
+    """The JAX package's OpenPose body params (``body_init`` /
+    ``load_body``) -> the port's BodyPose."""
+    from . import pose
+
+    return _module_from_jax(pose.BodyPose(), params, "body pose").to_compute(
+        dtype, torch.device(device))
+
+
+def posenet_from_jax(params, *, dtype=torch.float32, device="cuda"):
+    """The JAX package's small PoseNet (``pose.init``) -> the port's."""
+    from . import pose
+
+    model = pose.PoseNet(int(np.shape(params["stem1"]["w"])[-1]),
+                         len(params["blocks"]))
+    return _module_from_jax(model, params, "posenet").to_compute(
+        dtype, torch.device(device))
+
+
+def uniformer_from_jax(params, cfg, *, dtype=torch.float32, device="cuda"):
+    from . import uniformer
+
+    return _module_from_jax(uniformer.UniFormer(cfg), params,
+                            "uniformer").to_compute(dtype,
+                                                    torch.device(device))
+
+
+def baenormal_from_jax(params, cfg, *, dtype=torch.float32, device="cuda"):
+    from . import baenormal
+
+    return _module_from_jax(baenormal.BAENormal(cfg), params,
+                            "baenormal").to_compute(dtype,
+                                                    torch.device(device))
+
+
+def mlsd_from_jax(params, *, dtype=torch.float32, device="cuda"):
+    """The JAX package's M-LSD params -> the port's MLSD; each block's
+    ``stride`` and ``res`` must be the module's plan."""
+    from . import mlsd
+
+    model = mlsd.MLSD()
+    blocks = params["blocks"]
+    if len(blocks) != len(model.blocks):
+        raise ValueError(f"mlsd: {len(blocks)} blocks, the net has "
+                         f"{len(model.blocks)}")
+    for i, (blk, mod) in enumerate(zip(blocks, model.blocks)):
+        if (int(blk["stride"]), bool(blk["res"])) != (mod.stride, mod.res):
+            raise ValueError(f"mlsd: block {i} has stride/res "
+                             f"{blk['stride']}/{blk['res']}, the net "
+                             f"{mod.stride}/{mod.res}")
+    tree = dict(params, blocks=[{k: v for k, v in blk.items()
+                                 if k not in ("stride", "res")}
+                                for blk in blocks])
+    return _module_from_jax(model, tree, "mlsd").to_compute(
+        dtype, torch.device(device))

@@ -2,12 +2,14 @@
 port's generate servicer and server, on the CPU at the SD_TEST preset in
 f32, against the JAX package's servicer: the masks and hints that
 client.py's --mask_from_image_alpha and --hint_from_image (depth, canny,
-color, shuffle) requests extract (1e-4; the shuffle given the JAX flow),
-a request addressed to a depth engine (its PNG within one level), the
-engine of config/examples.yaml with its ``options:``, the options the port
-lacks (ToMe C6, CLIP guidance C7) and the hinters it lacks (D3)
-answering UNIMPLEMENTED, ``cfg_sequential`` reaching the pipeline; then
-client.py itself against the port's server for each."""
+color, shuffle, hed) requests extract (1e-4, hed 1e-3; the shuffle given
+the JAX flow), a request addressed to a depth or edge engine (its PNG
+within one level), the engine of config/examples.yaml with its
+``options:``, the options the port lacks (ToMe C6, CLIP guidance C7) and
+background removal (D3b) answering UNIMPLEMENTED, a request to the normal
+engine (which the JAX servicer runs as a generation),
+``cfg_sequential`` reaching the pipeline; then client.py itself against
+the port's server for each."""
 
 import os
 import threading
@@ -205,31 +207,109 @@ def test_cfg_sequential_and_ignored_options_reach_the_pipeline(monkeypatch):
         m.dispatcher.stop()
 
 
-def test_unported_hinter_engines_are_unimplemented(depth_ckpt, tmp_path,
-                                                   monkeypatch):
-    """With an edge engine configured (a D3 hinter), an edge hint chain and
-    a request to that engine answer UNIMPLEMENTED naming D3, not a tensor
-    proxy image."""
-    m = TManager(_engines(depth_ckpt) + [{"id": "hed", "task": "edge"}],
-                 device="cpu", compute_dtype=torch.float32)
+@pytest.fixture(scope="module")
+def hed_ckpt(tmp_path_factory):
+    from gyre_tpu_torch.models import hinters as th
+
+    path = str(tmp_path_factory.mktemp("hed") / "hed.safetensors")
+    save_file(th.state_dict_hed(th.random_hed(2, device="cpu")), path)
+    return path
+
+
+def _task_request(pb, engine_id, img=IMG):
+    req = _depth_request(pb, img)
+    req.engine_id = engine_id
+    return req
+
+
+def test_unported_hinter_engines_are_unimplemented(depth_ckpt, hed_ckpt,
+                                                   tmp_path, monkeypatch):
+    """The hinter engines serve (the test keeps its name from before they
+    were ported, when these answered UNIMPLEMENTED naming D3): with
+    config/engines/utility.yaml's edge engine over a HED checkpoint,
+    client.py's ``--hint_from_image hed:`` hint equals the JAX servicer's
+    (1e-3) and a request to the engine answers its PNG (within one
+    level); a background-removal engine (InSPyReNet, ROADMAP D3b) answers
+    UNIMPLEMENTED naming D3b; the edge engine is ready, background
+    removal is not."""
+    engines = _engines(depth_ckpt) + [
+        {"id": "hed-edge", "task": "edge", "model": hed_ckpt}]
+    tm = TManager(engines + [{"id": "background-removal",
+                              "task": "background_removal"}],
+                  device="cpu", compute_dtype=torch.float32)
+    jm = JManager(engines, compute_dtype=jnp.float32)
     try:
-        servicer = tgen.GenerationServiceServicer(m)
+        tm.load_engines()
+        jm.load_engines()
+        port = tgen.GenerationServiceServicer(tm)
+        ref = jgen.GenerationServiceServicer(jm)
         jreq = _client_request(["--hint_from_image",
                                 f"hed:{_png(tmp_path / 'h.png', IMG)}"],
                                monkeypatch)
-        for req in (tpb.Request.FromString(jreq.SerializeToString()),
-                    _depth_request(tpb)):
-            if not req.engine_id:
-                req.engine_id = "tiny"
-            else:
-                req.engine_id = "hed"
-            context = TContext()
-            with pytest.raises(TAbortError):
-                list(servicer.Generate(req, context))
-            assert context.code == grpc.StatusCode.UNIMPLEMENTED
-            assert "ROADMAP D3" in context.details
+        treq = tpb.Request.FromString(jreq.SerializeToString())
+        got = tgen.extract_params(treq, adjuster=port._adjuster(0))
+        want = jgen.extract_params(jreq, adjuster=lambda img, chain: (
+            jadj.apply_image_adjustment(img, chain, jm, None)))
+        (t, img, _, _), = got.hint_images
+        (jt, jimg, _, _), = want.hint_images
+        assert t == jt == "hed"
+        assert np.abs(np.asarray(img) - np.asarray(jimg)).max() <= 1e-3
+        assert float(np.asarray(img).std()) > 1e-3
+        ti = list(port.Generate(_task_request(tpb, "hed-edge"), TContext()))
+        ji = list(ref.Generate(_task_request(jpb, "hed-edge"), JContext()))
+        ti = timages.decode_png(ti[0].artifacts[0].binary)
+        ji = timages.decode_png(ji[0].artifacts[0].binary)
+        assert ti.shape == ji.shape == (1, 64, 64, 3)
+        assert np.abs(ti - ji).max() <= 1.0 / 255 + 1e-6
+        context = TContext()
+        with pytest.raises(TAbortError):
+            list(port.Generate(_task_request(tpb, "background-removal"),
+                               context))
+        assert context.code == grpc.StatusCode.UNIMPLEMENTED
+        assert "ROADMAP D3b" in context.details
+        ready = {s["id"]: s["ready"] for s in tm.status()}
+        assert ready["hed-edge"] and not ready["background-removal"]
     finally:
-        m.dispatcher.stop()
+        tm.dispatcher.stop()
+        jm.dispatcher.stop()
+
+
+def test_direct_normal_request_serves_where_jax_fails(depth_ckpt,
+                                                     monkeypatch):
+    """A request sent to the bae-normal engine: the JAX servicer's list of
+    direct task engines (gyre_tpu/services/generate.py:551-554) lacks
+    "normal", so it runs the request as a generation on that engine
+    (``with_engine``; unpatched, after building a random SD1.5 ModelSet
+    for it, that answers INVALID_ARGUMENT on a shape error); the port's
+    servicer runs any task engine and answers its normal map (a deliberate
+    difference, ROADMAP queue 3)."""
+    engines = _engines(depth_ckpt) + [
+        {"id": "bae-normal", "task": "normal", "kind": "bae"}]
+    tm = TManager(engines, device="cpu", compute_dtype=torch.float32)
+    jm = JManager(engines, compute_dtype=jnp.float32)
+    asked = []
+
+    def with_engine(engine_id, **kw):
+        asked.append(engine_id)
+        raise RuntimeError(f"a generation on {engine_id}")
+
+    monkeypatch.setattr(jm, "with_engine", with_engine)
+    try:
+        tm.load_engines()
+        with pytest.raises(Exception):
+            list(jgen.GenerationServiceServicer(jm).Generate(
+                _task_request(jpb, "bae-normal"), JContext()))
+        assert asked == ["bae-normal"]
+        out = list(tgen.GenerationServiceServicer(tm).Generate(
+            _task_request(tpb, "bae-normal"), TContext()))
+        got = timages.decode_png(out[0].artifacts[0].binary)
+        sent = timages.decode_png(timages.encode_png(IMG))
+        want = tm.task_pipeline("normal")(sent).numpy()
+        assert got.shape == (1, 64, 64, 3)
+        assert np.abs(got - want).max() <= 1.0 / 255 + 1e-6
+    finally:
+        tm.dispatcher.stop()
+        jm.dispatcher.stop()
 
 
 # ----------------------------------------------- client.py against the server

@@ -5,7 +5,8 @@ chains that client.py sends for --mask_from_image_alpha and
 --hint_from_image, background removal's modes and reapply, a depth
 engine chosen by ImageAdjustment.engine_id, and the task-engine rule (the
 JAX package's tensor fallback where no engine of the task is configured,
-NotImplementedError naming ROADMAP D3 where a hinter the port lacks is).
+the configured hinter engine's image otherwise, NotImplementedError
+naming ROADMAP D3b for background removal, which the port lacks).
 Tolerance 1e-5 absolute (1e-4 for chains through infill and the DPT
 engines). The shuffle is given the JAX package's flow."""
 
@@ -252,28 +253,85 @@ def test_depth_engine_selection_matches_jax(depth_managers, engine_id):
     assert {s["id"]: s["weights"] for s in tm.status()}["d1"] == "real"
 
 
+@pytest.fixture(scope="module")
+def hinter_ckpts(tmp_path_factory):
+    """Published-layout checkpoints of the port's random hinters, as
+    config/engines/utility.yaml's edge, segmentation, normal and pose
+    engines name them (the JAX package reads the same files)."""
+    from gyre_tpu_torch.models import baenormal as tbae
+    from gyre_tpu_torch.models import hinters as th
+    from gyre_tpu_torch.models import pose as tpose
+    from gyre_tpu_torch.models import uniformer as tuni
+
+    seg = tuni.UniFormerConfig(layers=(1, 1, 1, 1),
+                               embed_dim=(16, 32, 64, 64), head_dim=64,
+                               num_classes=12, fpn_channels=16)
+    states = {
+        "edge": th.state_dict_hed(th.random_hed(2, device="cpu")),
+        "segmentation": tuni.state_dict_uniformer(
+            tuni.random_uniformer(seg, 2, device="cpu")),
+        "normal": tbae.state_dict_baenormal(
+            tbae.random_baenormal(tbae.EFFNET_TEST, 2, device="cpu")),
+        "pose": tpose.state_dict_body(tpose.random_body(2, device="cpu"))}
+    root = tmp_path_factory.mktemp("hinters")
+    paths = {}
+    for task, state in states.items():
+        paths[task] = str(root / f"{task}.safetensors")
+        save_file(state, paths[task])
+    return paths
+
+
 @pytest.mark.parametrize("task,field", [
     ("edge", "edge_detection"), ("segmentation", "segmentation"),
     ("normal", "normal"), ("background_removal", "background_removal"),
     ("pose", "openpose")])
-def test_unported_task_engine_raises_naming_d3(task, field):
-    """Where an engine of a hinter task is configured, the port has no
-    model for it yet: the chain raises naming D3 (the JAX package would
-    run the model; the tensor fallback would be another image). Without
-    such an engine the fallback is the JAX package's."""
-    tm = TManager([{"id": "gen", "model": "preset/test"},
-                   {"id": "hinter", "task": task}], device="cpu",
-                  compute_dtype=torch.float32)
+def test_unported_task_engine_raises_naming_d3(task, field, hinter_ckpts):
+    """Where an engine of a hinter task is configured, the chain runs it,
+    as the JAX package does: HED edges (1e-3), the segmentation render
+    (the same class on 95 % of pixels: random weights leave near-ties),
+    BAE normals (1e-3) and the OpenPose render (equal; ``refine: none``,
+    since the top-down crop is 368 px). Background removal (InSPyReNet) is
+    not ported: the chain raises naming ROADMAP D3b, and without such an
+    engine the fallback is the JAX package's. (Before the hinters were
+    ported, every one of these raised naming D3.)"""
     bare = TManager([{"id": "gen", "model": "preset/test"}], device="cpu",
                     compute_dtype=torch.float32)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP D3"):
-            tadj.apply_image_adjustment(torch.from_numpy(RGBA),
-                                        _chain(tpb, [(field, {})]), tm)
-        if task == "pose":
+        if task == "background_removal":
+            tm = TManager([{"id": "gen", "model": "preset/test"},
+                           {"id": "hinter", "task": task}], device="cpu",
+                          compute_dtype=torch.float32)
+            try:
+                with pytest.raises(NotImplementedError,
+                                   match="ROADMAP D3b"):
+                    tadj.apply_image_adjustment(
+                        torch.from_numpy(RGBA), _chain(tpb, [(field, {})]),
+                        tm)
+            finally:
+                tm.dispatcher.stop()
+            ref, got = _both([(field, {})], RGBA, tm=bare)
+            assert np.abs(ref - got).max() <= 1e-4
             return
-        ref, got = _both([(field, {})], RGBA, tm=bare)
-        assert np.abs(ref - got).max() <= 1e-4
+        spec = [{"id": "gen", "model": "preset/test"},
+                {"id": "hinter", "task": task, "model": hinter_ckpts[task],
+                 **({"refine": "none"} if task == "pose" else {})}]
+        tm = TManager(spec, device="cpu", compute_dtype=torch.float32)
+        jm = JManager(spec, compute_dtype=jnp.float32)
+        try:
+            ref, got = _both([(field, {})], IMG, jm=jm, tm=tm)
+        finally:
+            tm.dispatcher.stop()
+            jm.dispatcher.stop()
+        assert got.shape == ref.shape == (1, 64, 64, 3)
+        if task == "segmentation":
+            assert (ref == got).all(axis=-1).mean() >= 0.95
+        elif task == "pose":
+            assert np.array_equal(ref, got)
+        else:
+            assert np.abs(ref - got).max() <= 1e-3
+            assert got.std() > 1e-3
+        if task != "pose":                  # pose has no fallback
+            ref, got = _both([(field, {})], IMG, tm=bare)
+            assert np.abs(ref - got).max() <= 1e-4
     finally:
-        tm.dispatcher.stop()
         bare.dispatcher.stop()

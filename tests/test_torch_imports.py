@@ -28,7 +28,8 @@ for name in ("manager.engines_yaml", "manager.weights", "manager.mixing",
              "pipeline.lora", "manager.hints", "models.controlnet",
              "models.t2i_adapter", "services.adjustments", "models.dpt",
              "models.zoedepth", "pipeline.clip_guidance",
-             "utils.latent_debug"):
+             "utils.latent_debug", "models.hinters", "models.pose",
+             "models.uniformer", "models.baenormal", "models.mlsd"):
     assert "gyre_tpu_torch." + name in names, name
 import chip_smoke, kernel_sweep  # the root scripts
 loaded = [k for k, v in sys.modules.items()

@@ -407,8 +407,10 @@ def test_nine_channel_engine_is_ready(weight_root):
 def test_shipped_config_reports_only_servable_engines_ready(shipped,
                                                             weight_root):
     """Every enabled engine of the shipped config/engines.yaml: the
-    4-channel SD 1.5 engine, the 9-channel inpainting engine and the MiDaS
-    depth engine are ready; every other task engine is not."""
+    4-channel SD 1.5 engine, the 9-channel inpainting engine, the MiDaS
+    depth engine and the hinter engines (edge, lines, pose, segmentation,
+    DexiNed, line art, normals) are ready; background removal (ROADMAP
+    D3b) and the upscaler (D4) are not."""
     manager = tserver.build_manager(tserver.parse_args(
         ["--enginecfg", shipped, "--device", "cpu", "--dtype", "float32",
          "--weight_root", weight_root]))
@@ -420,10 +422,12 @@ def test_shipped_config_reports_only_servable_engines_ready(shipped,
                  if s.enabled and s.task != "generate"}
         assert {"esrgan-x4", "midas-depth", "mlsd-lines", "dexined-edge",
                 "lineart"} <= tasks
-        assert {i for i in enabled if status[i]} == {SD15, INPAINT,
-                                                     "midas-depth"}
-        assert {i for i in enabled if listed.get(i)} == {SD15, INPAINT,
-                                                         "midas-depth"}
+        ready = {SD15, INPAINT, "midas-depth", "hed-edge", "mlsd-lines",
+                 "openpose", "segmentation", "dexined-edge", "lineart",
+                 "bae-normal"}
+        assert {i for i in enabled if status[i]} == ready
+        assert {i for i in enabled if listed.get(i)} == ready
+        assert not status["background-removal"] and not status["esrgan-x4"]
     finally:
         manager.dispatcher.stop()
 
