@@ -145,9 +145,39 @@ Phases, each printing one JSON object per line:
                keypose / normal (launches 921 / 1308 / 1308, segmentation
                + 11 K1) against the plain hinted request, a request to
                each engine (its PNG within one level of its in-process
-               map), the hed-hinted image within 1 level of the same
-               request in-process, and background-removal answering
-               UNIMPLEMENTED naming ROADMAP D3b
+               map), and the hed-hinted image within 1 level of the same
+               request in-process
+  5i. upscalers the D3b and D4 engines of config/engines/utility.yaml at
+               their published widths (random, seed 0, drawn on the card,
+               written to disk in the published layouts in bf16):
+               RealESRGAN_x4plus (23 RRDB), SwinIR-M x4 classical, HAT-M
+               x4 and InSPyReNet-SwinB (embed 128, depths 2/2/18/2,
+               window 12, decoder depth 64), served by server.serve beside
+               SD1.5 with a depth ControlNet hintset and an sd-x4 upscaler
+               engine: each "real" and ready (sd-x4 not), its parameters,
+               bytes and load seconds; background removal at 512²
+               (unscaled), 1920x1536 (scaled) and 2816x2304 (scaled,
+               guided filter), ESRGAN on a 256² RGBA image (16 tiles of
+               128², each 4x4 cell of its output against the model run
+               untiled, ESRGAN_TILE_CELL_BOUND; the alpha's shape) and
+               SwinIR and HAT on a 128² image, each with its wall, peak
+               memory and launches (none), the background removals'
+               device busy share; the card's models against the same
+               weights in f32 on the CPU (UPSCALER_CPU_SIZES: InSPyReNet's
+               logits and ESRGAN's image in bf16 within
+               UPSCALER_BF16_BOUND, SwinIR and HAT in f32 on both sides
+               within UPSCALER_F32_BOUND); the background-removal engine
+               at BG_ENGINE_MAX_RES on a BG_ENGINE_SIZE image (scaled,
+               guided filter), its RGBA against a CPU engine's in f32
+               over the same checkpoint (BG_ENGINE_ALPHA_BOUND); then
+               client.py's own request
+               builders over gRPC: -e esrgan-x4 -i and -e
+               background-removal -i (each PNG within one level of the
+               engine's in-process image, no launches), --hint_from_image
+               nobg:depth: (background removal, the depth hint, the mask
+               reapplied; launches 921 / 1308 / 1308, within 1 level of
+               the same chain and request in-process), and upscaler-x4
+               answering UNIMPLEMENTED naming ROADMAP D4b
   5e. sd2      an EngineManager engine on the sd21 preset (OpenCLIP-H,
                linear projections, v-prediction; random, seed 0, bf16):
                768x768, 20 steps k_dpmpp_2m, CFG 7.5, batch 1,
@@ -167,7 +197,11 @@ Phases, each printing one JSON object per line:
                (K1 88, K2a/K2b 44 a UNet call, plus an encode), each
                checked as in 5e; a ChainGenerate base -> refiner (start
                0.34) -> RETURN over gRPC, one 1024x1024 image, its
-               launches those of the two stages; the load seconds, each
+               launches those of the two stages; the same chain with an
+               ESRGAN x4 stage after the refiner (random, 23 blocks, tiled):
+               one 4096x4096 image, the same launches (ESRGAN launches
+               none), within 1 level of the engine's pipeline applied
+               in-process to the refined image; the load seconds, each
                model's weight bytes, the phase's peak memory and
                suggest_max_batch at 1024x1024; both engines freed after
   6. serve     EngineManager + the coalescing dispatcher under concurrent
@@ -687,6 +721,35 @@ HINTER_CPU_SIZE = 256
 HINTER_MAP_BOUND = 2e-2
 HINTER_MAP_BOUNDS = {"lineart": 3e-2}
 HINTER_CLASS_SHARE = 0.99
+
+# the upscalers phase: background removal at 512² (unscaled), a non-square
+# image whose long side lies between 1280 and 2560 (scaled, no filter) and
+# one past 2560 (scaled, guided filter); the upscalers' inputs; the
+# bf16-against-f32 sizes; the bounds (max |card - CPU| / max |CPU|)
+BG_SIZES = {"unscaled": (512, 512), "scaled": (1920, 1536),
+            "guided": (2816, 2304)}
+ESRGAN_SIZE = 256
+SR_SIZE = 128
+UPSCALER_CPU_SIZES = {"background-removal": 256, "esrgan-x4": 64,
+                      "swinir-x4": 48, "hat-x4": 48}
+UPSCALER_BF16_BOUND = 2e-2      # InSPyReNet's logits, ESRGAN's image
+UPSCALER_F32_BOUND = 1e-3       # SwinIR, HAT: f32 on both sides
+# the background-removal engine at a small max_res on an image past twice
+# it (so the resizes and the guided filter run): the card's (bf16) RGBA
+# against a CPU engine's in f32 over the same checkpoint. RGB equal; the
+# alpha, in [0, 1], within the bound: bf16 rounding moves it by ~1e-3-1e-2
+# (the logits' error through the sigmoid, the min-max stretch and the
+# 1.25 of (map - 0.2) / 0.8), where a missed pad, resize or filter moves it
+# by the map's own contrast (~0.1-1)
+BG_ENGINE_MAX_RES = 128
+BG_ENGINE_SIZE = (320, 288)
+BG_ENGINE_ALPHA_BOUND = 5e-2
+# ESRGAN tiled against untiled, the mean |difference| of each of the 4x4
+# cells of the output: a tile sees 16 px of context where the 23-block
+# RRDB's receptive field is ~350 px, so seams differ (0.0028 mean, 0.19 at
+# most, at random weights in an f32 CPU rehearsal); a misplaced or
+# misweighted tile moves its cell by the image's own spread (~0.1)
+ESRGAN_TILE_CELL_BOUND = 2e-2
 
 
 def _hinter_shapes():
@@ -2659,12 +2722,11 @@ def phase_hinters():
     """The D3 hinter engines at full width from disk: load, an estimate
     each with its launches, memory and walls, the card's bf16 against the
     CPU's f32, client.py's hint conversions and requests to each engine
-    over gRPC, and background removal's UNIMPLEMENTED."""
+    over gRPC."""
     import os
     import shutil
     import tempfile
 
-    import grpc
     import numpy as np
     import torch
 
@@ -2708,8 +2770,7 @@ def phase_hinters():
                 + (f"kind: {kind}, " if kind else "")
                 + f"model: {paths[eid]}}}\n"
                 for eid, task, kind, *_ in table)
-            + "- {id: background-removal, task: background_removal}\n"
-            f"- {{model_id: smoke-cn, model: {cn_path}}}\n"
+            + f"- {{model_id: smoke-cn, model: {cn_path}}}\n"
             "- {hintset_id: hs, " + ", ".join(
                 f"controlnet/{t}: {{aliases: [{t}], model: '@smoke-cn'}}"
                 for t in types) + "}\n")
@@ -2730,8 +2791,6 @@ def phase_hinters():
         for eid, *_ in table:
             if status[eid] != (True, "real"):
                 failed.append(f"{eid}: status {status[eid]}")
-        if status["background-removal"][0]:
-            failed.append("background-removal reported ready")
 
         # --- one estimate of the 512² image each: launches, peak memory,
         # the median wall of 3; a traced estimate of HED and UniFormer
@@ -2853,18 +2912,6 @@ def phase_hinters():
         for name, d in diffs.items():
             if d > (1 if name.startswith("hint") else 1.0 / 255 + 1e-6):
                 failed.append(f"{name}: {d} off the in-process image")
-        # background removal (InSPyReNet) is not ported: UNIMPLEMENTED
-        try:
-            generate(_client_request(ns, argv + [
-                "-e", "background-removal", "-i", hint_path]))
-            failed.append("background-removal answered an image")
-        except grpc.RpcError as e:
-            emit({"phase": "hinters", "check": "background_removal",
-                  "code": str(e.code()), "details": e.details()})
-            if e.code() != grpc.StatusCode.UNIMPLEMENTED or \
-                    "ROADMAP D3b" not in (e.details() or ""):
-                failed.append(f"background-removal answered {e.code()}: "
-                              f"{e.details()}")
     finally:
         if channel is not None:
             channel.close()
@@ -2877,6 +2924,396 @@ def phase_hinters():
     emit({"phase": "hinters", "phase_s": time.perf_counter() - t_phase})
     if failed:
         raise AssertionError("hinters: " + "; ".join(failed))
+
+
+# ------------------------------------------------------------ upscalers
+
+def _upscaler_table():
+    """(engine id, task, kind, the published-layout exporter, the loader
+    (model out), the full-width random model on the card) of the D3b/D4
+    engines of config/engines/utility.yaml: RealESRGAN_x4plus, SwinIR-M x4
+    classical (the shipped swinir-x4), HAT-M x4 and InSPyReNet-SwinB."""
+    from gyre_tpu_torch.models import esrgan, hat, swinir
+    from gyre_tpu_torch.models import inspyrenet as isp
+
+    def first(load):
+        return lambda state, **kw: load(state, **kw)[0]
+
+    return [
+        ("esrgan-x4", "upscaler", None, esrgan.state_dict_esrgan,
+         esrgan.load_esrgan, lambda: esrgan.random_esrgan(23, 0)),
+        ("swinir-x4", "upscaler", "swinir", swinir.state_dict_swinir,
+         first(swinir.load_swinir),
+         lambda: swinir.random_swinir(swinir.SWINIR_CLASSICAL, 0)),
+        ("hat-x4", "upscaler", "hat", hat.state_dict_hat,
+         first(hat.load_hat), lambda: hat.random_hat(hat.HAT_M, 0)),
+        ("background-removal", "background_removal", None,
+         isp.state_dict_inspyrenet, first(isp.load_inspyrenet),
+         lambda: isp.random_inspyrenet(isp.SWIN_B, 64, 0)),
+    ]
+
+
+def _scene(h: int, w: int):
+    """A [1,H,W,3] uint8-valued image of any shape: a bright subject (a
+    disc and a bar over waves) on a darker gradient."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    yy, xx = yy / h, xx / w
+    bg = np.stack([0.2 + 0.3 * yy, 0.25 + 0.1 * np.sin(7 * xx),
+                   0.3 * (1 - xx)], -1)
+    disc = ((yy - 0.45) ** 2 + ((xx - 0.5) * w / h) ** 2 < 0.06)[..., None]
+    bar = ((np.abs(yy - 0.75) < 0.06) & (np.abs(xx - 0.5) < 0.3))[..., None]
+    fg = np.stack([0.9 - 0.3 * xx, 0.6 + 0.3 * np.sin(20 * yy * xx),
+                   0.5 + 0.4 * yy], -1)
+    img = np.where(disc | bar, fg, bg)
+    return (np.round(np.clip(img, 0, 1) * 255) / 255)[None].astype(
+        np.float32)
+
+
+def _upscaler_vs_cpu(eid, model, load, export, failed):
+    """The engine's model on the card (bf16 InSPyReNet and ESRGAN, f32
+    SwinIR and HAT) against the same weights in f32 on the CPU, at
+    UPSCALER_CPU_SIZES: one line."""
+    import torch
+
+    size = UPSCALER_CPU_SIZES[eid]
+    cpu = load(export(model), dtype=torch.float32, device="cpu")
+    x = torch.from_numpy(_scene(size, size))
+    bound = UPSCALER_F32_BOUND if model.dtype == torch.float32 else \
+        UPSCALER_BF16_BOUND
+    with torch.inference_mode():
+        if eid == "background-removal":     # the logits
+            card = model(x.cuda(), return_logits=True).float().cpu()
+            ref = cpu(x, return_logits=True)
+        else:
+            card = model(x.cuda()).float().cpu()
+            ref = cpu(x)
+    err = float((card - ref).abs().max()) / max(float(ref.abs().max()),
+                                                1e-12)
+    emit({"phase": "upscalers", "card_vs_cpu_f32": eid, "size": size,
+          "card_dtype": str(model.dtype), "max_abs_diff_rel": err,
+          "bound": bound, "cpu_max_abs": float(ref.abs().max()),
+          "shape": list(card.shape)})
+    if err > bound:
+        failed.append(f"{eid}: {err} off the CPU's f32")
+    del cpu
+
+
+def _bg_engine_vs_cpu(path, failed):
+    """The background-removal engine over ``path`` at BG_ENGINE_MAX_RES,
+    the card's manager (bf16) against a CPU manager in f32 on one
+    BG_ENGINE_SIZE image: the scaled, guided-filter geometry of
+    manager._build_background_removal on both sides. One line."""
+    import torch
+
+    from gyre_tpu_torch.manager.manager import EngineManager
+
+    h, w = BG_ENGINE_SIZE
+    x = torch.from_numpy(_scene(h, w))
+    spec = [{"id": "bg", "task": "background_removal", "model": path,
+             "max_res": BG_ENGINE_MAX_RES}]
+    outs = {}
+    for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        manager = EngineManager(spec, device=device, compute_dtype=dtype)
+        try:
+            run = manager.task_pipeline("background_removal", "bg")
+            if run.size != BG_ENGINE_MAX_RES:
+                failed.append(f"background removal at max_res "
+                              f"{BG_ENGINE_MAX_RES}: ran at {run.size}")
+            outs[device] = run(x.to(device)).float().cpu()
+        finally:
+            manager.dispatcher.stop()
+    card, ref = outs["cuda"], outs["cpu"]
+    diff = (card[..., 3] - ref[..., 3]).abs()
+    guided = max(h, w) > BG_ENGINE_MAX_RES and \
+        BG_ENGINE_MAX_RES / max(h, w) < 0.5
+    emit({"phase": "upscalers", "card_vs_cpu_f32": "background-removal "
+          "engine", "size": [h, w], "max_res": BG_ENGINE_MAX_RES,
+          "guided_filter": guided, "alpha_max_abs_diff": float(diff.max()),
+          "alpha_mean_abs_diff": float(diff.mean()),
+          "bound": BG_ENGINE_ALPHA_BOUND,
+          "cpu_alpha_mean": float(ref[..., 3].mean()),
+          "cpu_alpha_std": float(ref[..., 3].std()),
+          "shape": list(card.shape)})
+    failed.extend(f"background removal engine vs CPU: {what}"
+                  for what, bad in (
+        ("not the guided-filter path", not guided),
+        (f"shape {list(card.shape)}", list(card.shape) != [1, h, w, 4]),
+        ("RGB changed", not torch.equal(card[..., :3], x)),
+        ("a flat CPU alpha", float(ref[..., 3].std()) < 1e-3),
+        (f"alpha {float(diff.max())} off the CPU's f32",
+         not float(diff.max()) <= BG_ENGINE_ALPHA_BOUND)) if bad)
+
+
+def phase_upscalers():
+    """The D3b and D4 engines at published widths from disk (module
+    docstring, 5i)."""
+    import os
+    import shutil
+    import tempfile
+
+    import grpc
+    import numpy as np
+    import torch
+
+    from gyre_tpu_torch import _build
+    from gyre_tpu_torch.models import configs, load
+    from gyre_tpu_torch.ops import images as I
+    from gyre_tpu_torch.services import adjustments
+
+    t_phase = time.perf_counter()
+    failed = []
+    ucfg = configs.SD15.unet
+    table = _upscaler_table()
+    tmp = tempfile.mkdtemp(prefix="gyre-smoke-upscalers-")
+    manager = serving = channel = None
+    try:
+        # --- full-width random models (seed 0, drawn on the card) in their
+        # published layouts, bf16 on disk (index buffers as they are)
+        paths, sizes = {}, {}
+        t0 = time.perf_counter()
+        for eid, _, _, export, _, make in table:
+            model = make()
+            state = {k: torch.from_numpy(np.asarray(v)) for k, v in
+                     export(model).items()}
+            state = {k: v.to(torch.bfloat16) if v.is_floating_point()
+                     else v for k, v in state.items()}
+            paths[eid] = os.path.join(tmp, f"{eid}.safetensors")
+            load.write_safetensors(paths[eid], state)
+            sizes[eid] = (sum(p.numel() for p in model.parameters()),
+                          os.path.getsize(paths[eid]))
+            del model, state
+        cn_path = os.path.join(tmp, "cn.safetensors")
+        load.write_safetensors(cn_path, load.export_controlnet_state(
+            _live_controlnet(ucfg, 1), ucfg))
+        emit({"phase": "upscalers",
+              "checkpoints_s": time.perf_counter() - t0})
+        manager, serving, tmp2 = _serve_yaml(
+            "- {id: sd15, default: true, hintset: hs, model: {preset: "
+            "sd15, seed: 0}}\n"
+            f"- {{id: esrgan-x4, task: upscaler, blocks: 23, tile: 128, "
+            f"model: {paths['esrgan-x4']}}}\n"
+            f"- {{id: swinir-x4, task: upscaler, kind: swinir, tile: 64, "
+            f"model: {paths['swinir-x4']}}}\n"
+            f"- {{id: hat-x4, task: upscaler, kind: hat, tile: 64, "
+            f"model: {paths['hat-x4']}}}\n"
+            f"- {{id: background-removal, task: background_removal, "
+            f"model: {paths['background-removal']}}}\n"
+            "- {id: upscaler-x4, task: upscaler, kind: sd-x4}\n"
+            f"- {{model_id: smoke-cn, model: {cn_path}}}\n"
+            "- {hintset_id: hs, controlnet/depth: {aliases: [depth], "
+            "model: '@smoke-cn'}}\n")
+        shutil.rmtree(tmp2, ignore_errors=True)
+        runs, models = {}, {}
+        for eid, task, *_ in table:
+            t0 = time.perf_counter()
+            runs[eid] = manager.task_pipeline(task, eid)
+            torch.cuda.synchronize()
+            models[eid] = getattr(runs[eid], "model", None) or \
+                runs[eid].models[0]
+            emit({"phase": "upscalers", "engine": eid,
+                  "load_s": time.perf_counter() - t0,
+                  "params": sizes[eid][0], "file_bytes": sizes[eid][1],
+                  "model": type(models[eid]).__name__,
+                  "dtype": str(models[eid].dtype)})
+        status = {s["id"]: (s["ready"], s["weights"])
+                  for s in manager.status()}
+        emit({"phase": "upscalers", "status": status})
+        for eid, *_ in table:
+            if status[eid] != (True, "real"):
+                failed.append(f"{eid}: status {status[eid]}")
+        if status["upscaler-x4"][0]:
+            failed.append("upscaler-x4 (sd-x4) reported ready")
+
+        def measure(name, fn, out_shape, extra=None, profile=False):
+            """Warm-up, then the launches, peak memory and the median wall
+            of 3 of fn(); a traced call's busy share when ``profile``."""
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            _build.reset_launches()
+            out = fn()
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in _build.launches.items() if v}
+            peak = torch.cuda.max_memory_allocated()
+            wall = _median_wall(fn, 3)[0]
+            line = {"phase": "upscalers", "run": name, "wall_s": wall,
+                    "peak_bytes": peak, "peak_over_weights_bytes":
+                        peak - base, "launches": launches,
+                    "shape": list(out.shape),
+                    "finite": bool(out.isfinite().all()),
+                    "min": float(out.min()), "max": float(out.max()),
+                    **(extra or {})}
+            if profile:
+                prof = _device_profile(fn)
+                prof["busy_share"] = prof["device_busy_s"] / \
+                    prof["traced_wall_s"]
+                line.update(prof)
+            emit(line)
+            failed.extend(f"{name}: {what}" for what, bad in (
+                (f"launches {launches}", bool(launches)),
+                (f"shape {line['shape']}", line["shape"] != out_shape),
+                ("not finite", not line["finite"]),
+                ("out of [0, 1]", line["min"] < 0 or line["max"] > 1))
+                if bad)
+            return out
+
+        # --- background removal at three sizes: unscaled, scaled, scaled
+        # and refined by the guided filter
+        for name, (h, w) in BG_SIZES.items():
+            x = torch.from_numpy(_scene(h, w)).cuda()
+            out = measure(f"background_removal_{name}",
+                          lambda: runs["background-removal"](x),
+                          [1, h, w, 4], {"size": [h, w]}, profile=True)
+            alpha = out[..., 3]
+            emit({"phase": "upscalers", "check": f"alpha_{name}",
+                  "mean": float(alpha.mean()), "std": float(alpha.std())})
+            if not torch.equal(out[..., :3], x):
+                failed.append(f"background removal {name}: RGB changed")
+            del x, out, alpha
+
+        # --- ESRGAN on a 256² RGBA image (16 tiles of 128²) against the
+        # model run untiled; SwinIR and HAT on a 128² image
+        rgba = torch.from_numpy(np.concatenate([
+            _scene(ESRGAN_SIZE, ESRGAN_SIZE),
+            _scene(ESRGAN_SIZE, ESRGAN_SIZE)[..., :1]], -1)).cuda()
+        pipe = runs["esrgan-x4"]
+        tiles = len(pipe.positions(ESRGAN_SIZE, ESRGAN_SIZE)[0])
+        s4 = 4 * ESRGAN_SIZE
+        tiled = measure("esrgan_tiled", lambda: pipe(rgba),
+                        [1, s4, s4, 4], {"tiles": tiles, "tile": pipe.tile})
+        with torch.inference_mode():
+            direct = measure("esrgan_untiled",
+                             lambda: pipe.model(rgba[..., :3]).float(),
+                             [1, s4, s4, 3])
+        diff = (tiled[..., :3] - direct).abs()
+        cells = diff[0].reshape(4, s4 // 4, 4, s4 // 4, 3).mean(
+            dim=(1, 3, 4))
+        alpha_want = I.rescale(rgba[..., 3:], s4, s4, fit="strict")
+        emit({"phase": "upscalers", "check": "esrgan_tiled_vs_untiled",
+              "tiles": tiles, "alpha_shape": list(tiled[..., 3:].shape),
+              "alpha_max_diff": float((tiled[..., 3:] -
+                                       alpha_want.clamp(0, 1)).abs().max()),
+              "max_abs_diff": float(diff.max()),
+              "mean_abs_diff": float(diff.mean()),
+              "cell_mean_max": float(cells.max()),
+              "bound": ESRGAN_TILE_CELL_BOUND})
+        if tiles != 16:
+            failed.append(f"esrgan: {tiles} tiles, expected 16")
+        if float(cells.max()) > ESRGAN_TILE_CELL_BOUND:
+            failed.append(f"esrgan tiled: a cell {float(cells.max())} off "
+                          "the untiled image")
+        del tiled, direct, diff
+        x = torch.from_numpy(_scene(SR_SIZE, SR_SIZE)).cuda()
+        for eid in ("swinir-x4", "hat-x4"):
+            measure(eid, lambda: runs[eid](x), [1, 4 * SR_SIZE, 4 * SR_SIZE,
+                                               3],
+                    {"tiles": len(runs[eid].positions(SR_SIZE,
+                                                      SR_SIZE)[0]),
+                     "tile": runs[eid].tile,
+                     "overlap": runs[eid].overlap})
+
+        # --- the card's models against the same weights in f32 on the CPU
+        for eid, _, _, export, load_fn, _ in table:
+            _upscaler_vs_cpu(eid, models[eid], load_fn, export, failed)
+        _bg_engine_vs_cpu(paths["background-removal"], failed)
+
+        # --- over gRPC: client.py's requests, each against the same work
+        # in-process
+        ns = _client_builders()
+        channel, generate = _grpc_generate(serving.grpc_port)
+        size = HINTER_SIZE
+        img_np = _mode_inputs(size)[0]
+        paths_in = {}
+        for name, img in (("hint", img_np[0]),
+                          ("small", _scene(SR_SIZE, SR_SIZE)[0])):
+            paths_in[name] = os.path.join(tmp, f"{name}.png")
+            with open(paths_in[name], "wb") as fh:
+                fh.write(I.encode_png(img))
+        argv = [REQUEST["prompt"], "-n", REQUEST["negative_prompt"],
+                "--host", "localhost:1", "-W", str(size), "-H", str(size),
+                "--steps", str(STEPS), "-s", "k_dpmpp_2m", "-S", "61"]
+        cases = {
+            "esrgan-x4": ["-e", "esrgan-x4", "-i", paths_in["small"]],
+            "background-removal": ["-e", "background-removal", "-i",
+                                   paths_in["small"]],
+            "nobg_depth": ["-e", "sd15", "--hint_from_image",
+                           f"nobg:depth:{paths_in['hint']}"]}
+        hinted = {"flash_attention": 921, "gn_stats": 1308,
+                  "gn_silu_conv3x3": 1308}
+        got, diffs = {}, {}
+        for name, a in cases.items():
+            req = _client_request(ns, argv + a)
+            generate(req)                                   # warm-up
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            got[name] = generate(req)
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in _build.launches.items() if v}
+            expect = hinted if name == "nobg_depth" else {}
+            emit({"phase": "upscalers", "grpc": name, "wall_s": wall,
+                  "shape": list(got[name].shape), "launches": launches,
+                  "expected_launches": expect})
+            if launches != expect:
+                failed.append(f"gRPC {name}: launches {launches} != "
+                              f"{expect}")
+        small = torch.from_numpy(I.decode_png(I.encode_png(
+            _scene(SR_SIZE, SR_SIZE)[0]))).cuda()
+        for eid in ("esrgan-x4", "background-removal"):
+            want = runs[eid](small)[0].clamp(0, 1).cpu().numpy()
+            diffs[eid] = float(np.abs(got[eid] / 255.0 - want).max()) \
+                if got[eid].shape == want.shape else float("inf")
+        # the nobg hint: client.py's chain (background removal SOLID, the
+        # depth adjustment, the mask reapplied as ALPHA) in-process, then
+        # the same request with that hint
+        req = _client_request(ns, argv + cases["nobg_depth"])
+        chain = [p.artifact for p in req.prompt
+                 if p.WhichOneof("prompt") == "artifact"][-1].adjustments
+        upload = torch.from_numpy(I.decode_png(I.encode_png(img_np[0])))
+        hint = adjustments.apply_image_adjustment(upload.cuda(), chain,
+                                                  manager, None, 61)
+        want = manager.dispatch_view("sd15").pipe(**dict(
+            REQUEST, height=size, width=size, seeds=[61],
+            output_dtype="uint8", chunk_steps=10,
+            stop_event=threading.Event(), hints=[{
+                "params": manager.hint_model("depth", "sd15")["params"],
+                "kind": "controlnet",
+                "image": hint[..., :3].cpu().numpy(), "scale": 1.0}]))
+        diffs["nobg_depth"] = int(np.abs(got["nobg_depth"].astype(int) -
+                                         want[0].cpu().numpy().astype(int)
+                                         ).max())
+        emit({"phase": "upscalers", "check": "grpc_equals_in_process",
+              "max_diff": diffs, "nobg_hint_shape": list(hint.shape),
+              "nobg_alpha_mean": float(hint[..., 3].mean())})
+        for name, d in diffs.items():
+            if d > (1 if name == "nobg_depth" else 1.0 / 255 + 1e-6):
+                failed.append(f"gRPC {name}: {d} off the in-process image")
+        # the diffusion upscaler is not ported: UNIMPLEMENTED naming D4b
+        try:
+            generate(_client_request(ns, argv + [
+                "-e", "upscaler-x4", "-i", paths_in["small"]]))
+            failed.append("upscaler-x4 answered an image")
+        except grpc.RpcError as e:
+            emit({"phase": "upscalers", "check": "upscaler_x4",
+                  "code": str(e.code()), "details": e.details()})
+            if e.code() != grpc.StatusCode.UNIMPLEMENTED or \
+                    "ROADMAP D4b" not in (e.details() or ""):
+                failed.append(f"upscaler-x4 answered {e.code()}: "
+                              f"{e.details()}")
+    finally:
+        if channel is not None:
+            channel.close()
+        if serving is not None:
+            serving.stop(0)
+        if manager is not None:
+            manager.dispatcher.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    emit({"phase": "upscalers", "phase_s": time.perf_counter() - t_phase})
+    if failed:
+        raise AssertionError("upscalers: " + "; ".join(failed))
 
 
 # ------------------------------------------------------------- SD2, SDXL
@@ -2977,7 +3414,9 @@ def phase_sdxl():
         [{"id": "sdxl", "default": True,
           "model": {"preset": "sdxl", "seed": 0}},
          {"id": "sdxl-refiner", "model": {"preset": "sdxl-refiner",
-                                          "seed": 0}}],
+                                          "seed": 0}},
+         {"id": "esrgan-x4", "task": "upscaler", "blocks": 23,
+          "tile": 128}],
         device="cuda", batch_max=1, gather_ms=0.0)
     failed = []
     try:
@@ -3028,15 +3467,14 @@ def phase_sdxl():
                 refiner_launches, (n, 1, 1), 1024, failed)
 
         # base -> refiner (start 0.34) -> RETURN over gRPC, both at the
-        # engines' natural size
+        # engines' natural size; then base -> refiner -> ESRGAN x4
         server, port = build_server(manager, 0, batch_max=1,
                                     host="localhost")
         channel = grpc.insecure_channel(f"localhost:{port}")
-        try:
-            chain = pb.ChainRequest(request_id="smoke-chain")
-            for sid, engine, start, target in (
-                    ("base", "sdxl", None, "refine"),
-                    ("refine", "sdxl-refiner", 0.34, None)):
+
+        def chain_request(rid, stages):
+            chain = pb.ChainRequest(request_id=rid)
+            for sid, engine, start, target in stages:
                 stage = chain.stage.add()
                 stage.id = sid
                 req = _generate_request(5, engine)
@@ -3050,6 +3488,12 @@ def phase_sdxl():
                     on.target = target
                 else:
                     on.action.append(pb.STAGE_ACTION_RETURN)
+            return chain
+
+        try:
+            chain = chain_request("smoke-chain", (
+                ("base", "sdxl", None, "refine"),
+                ("refine", "sdxl-refiner", 0.34, None)))
             call = channel.unary_stream(
                 "/gooseai.GenerationService/ChainGenerate",
                 request_serializer=pb.ChainRequest.SerializeToString,
@@ -3074,6 +3518,41 @@ def phase_sdxl():
             if launches != expect:
                 failed.append(f"sdxl chain: launches {launches} != "
                               f"{expect}")
+            # the same chain with ESRGAN x4 (random, 23 blocks) after the
+            # refiner: one 4096² image, the launches of the two diffusion
+            # stages (ESRGAN launches none), and the image the ESRGAN
+            # pipeline makes in-process of the refined one
+            up_chain = chain_request("smoke-chain-upscale", (
+                ("base", "sdxl", None, "refine"),
+                ("refine", "sdxl-refiner", 0.34, "upscale"),
+                ("upscale", "esrgan-x4", None, None)))
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            up_answers = list(call(up_chain, timeout=900))
+            wall = time.perf_counter() - t0
+            launches = dict(_build.launches)
+            up = [_png_pixels(a.binary) for a in
+                  _image_artifacts(up_answers)]
+            want = manager.task_pipeline("upscaler", "esrgan-x4")(
+                images[0][None].astype(np.float32) / 255.0)
+            want = (want[0] * 255).round().to(torch.uint8).cpu().numpy()
+            diff = int(np.abs(up[0].astype(int) - want.astype(int)).max()) \
+                if up and up[0].shape == want.shape else None
+            emit({"phase": "sdxl", "case": "grpc_chain_upscale",
+                  "wall_s": wall,
+                  "answers": [a.answer_id for a in up_answers],
+                  "shapes": [list(i.shape) for i in up],
+                  "launches": launches, "expected_launches": expect,
+                  "max_diff_in_process": diff})
+            if [i.shape for i in up] != [(4096, 4096, 3)]:
+                failed.append("sdxl upscale chain: not one 4096x4096 "
+                              "image")
+            if launches != expect:
+                failed.append(f"sdxl upscale chain: launches {launches} "
+                              f"!= {expect}")
+            if diff is None or diff > 1:
+                failed.append(f"sdxl upscale chain: {diff} levels off the "
+                              "in-process ESRGAN image")
         finally:
             channel.close()
             server.stop(0).wait()
@@ -3205,9 +3684,9 @@ HTTP_TOKEN = "smoke-token"
 
 
 def _png_pixels(data: bytes):
-    """uint8 [H,W,3] of a PNG written by the port's encoder (one zlib
-    stream of filter-0 RGB scanlines), so that no image library is
-    needed."""
+    """uint8 [H,W,3] (or [H,W,4]) of a PNG written by the port's encoder
+    (one zlib stream of filter-0 RGB or RGBA scanlines), so that no image
+    library is needed."""
     import struct
     import zlib
 
@@ -3215,23 +3694,24 @@ def _png_pixels(data: bytes):
 
     if not data.startswith(b"\x89PNG\r\n\x1a\n"):
         raise AssertionError("not a PNG")
-    off, idat, width, height = 8, b"", 0, 0
+    off, idat, width, height, c = 8, b"", 0, 0, 0
     while off < len(data):
         (length,), tag = struct.unpack(">I", data[off:off + 4]), \
             data[off + 4:off + 8]
         chunk = data[off + 8:off + 8 + length]
         if tag == b"IHDR":
             width, height = struct.unpack(">II", chunk[:8])
-            if chunk[8:10] != b"\x08\x02":
-                raise AssertionError("PNG is not 8-bit RGB")
+            c = {b"\x08\x02": 3, b"\x08\x06": 4}.get(chunk[8:10], 0)
+            if not c:
+                raise AssertionError("PNG is not 8-bit RGB or RGBA")
         elif tag == b"IDAT":
             idat += chunk
         off += 12 + length
     raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
-        height, 1 + 3 * width)
+        height, 1 + c * width)
     if raw[:, 0].any():
         raise AssertionError("PNG uses scanline filters")
-    return raw[:, 1:].reshape(height, width, 3)
+    return raw[:, 1:].reshape(height, width, c)
 
 
 def _image_artifacts(answers, mime: str = "image/png"):
@@ -3829,7 +4309,8 @@ def main() -> int:
     # dropped EngineManager frees its engines at once; the collection guards
     # against a cycle that would keep one)
     for phase in (phase_samplers, phase_modes, phase_adapters, phase_hints,
-                  phase_adjust, phase_hinters, phase_sd2, phase_sdxl,
+                  phase_adjust, phase_hinters, phase_upscalers, phase_sd2,
+                  phase_sdxl,
                   phase_serve, phase_http, phase_weights):
         phase()
         gc.collect()

@@ -40,11 +40,14 @@ kind ``depth``/``midas``/``dpt`` is a MiDaS DPT (models/dpt.py), of kind
 ``zoe``/``zoedepth`` ZoeDepth's head over a DPT trunk (models/zoedepth.py),
 each in the manager's compute dtype (its head in f32), from the engine's
 ``model:`` checkpoint (``spec_state_dict``) or, with no resolvable
-weights, random at ``DPT_TEST`` as in the JAX package. Not ported, and
-raising NotImplementedError with the ROADMAP item when an engine or
-request needs them: the other task engines (hinters D3, upscalers and face
-restoration D4), the CLIP model for guidance (C6), and the upscalers'
-class and scale-shift time conditioning of a UNet (D4).
+weights, random at ``DPT_TEST`` as in the JAX package; so are the
+hinters (edges, line art, pose, segmentation, normals, lines), background
+removal (InSPyReNet) and the image-space upscalers (Real-ESRGAN, SwinIR,
+HAT behind pipeline/upscaler.py's tiles). Not ported, and raising
+NotImplementedError with the ROADMAP item when an engine or request needs
+them: the diffusion upscalers (``kind: sd-x4`` / ``sd-x2``) and face
+restoration (D4b), the CLIP model for guidance (C6), and the upscalers'
+class and scale-shift time conditioning of a UNet (D4b).
 """
 
 from __future__ import annotations
@@ -472,11 +475,55 @@ class EngineManager:
         if spec.task in ("depth", "hinter", "edge", "segmentation",
                          "background_removal", "pose", "normal"):
             return self._build_hinter(spec)
-        if spec.task in ("upscaler", "face_restore"):
-            _unported(f"engine {spec.id}: task {spec.task!r}", "D4")
+        if spec.task == "upscaler":
+            return self._build_upscaler(spec)
+        if spec.task in ("face_restore", "codeformer"):
+            _unported(f"engine {spec.id}: task {spec.task!r}", "D4b")
         return None
 
+    # the upscaler kinds that are latent diffusion pipelines
+    _DIFFUSION_UPSCALERS = ("sd-x2", "latent-x2", "x2", "sd-x4", "diffusion",
+                            "latent")
+
+    def _build_upscaler(self, spec: EngineSpec):
+        """An image-space upscaler engine: a callable image [B,H,W,3|4] in
+        [0,1] -> [B,4H,4W,3|4] f32 on the manager's device, the tiled
+        pipeline (pipeline/upscaler.py) over HAT (``kind: hat``) or SwinIR
+        (``kind: swinir``), each in f32 at ``tile`` (64) with an overlap
+        of half its window, or else Real-ESRGAN in the manager's dtype at
+        ``blocks`` (23) and ``tile`` (128). From the engine's checkpoint
+        (its architecture derived from the shapes), else random at
+        ``HAT_TEST`` / ``SWINIR_TEST`` / ``blocks`` as in the JAX package;
+        a checkpoint that resolves and does not load raises. The diffusion
+        upscalers (``sd-x4``, ``sd-x2``) raise naming ROADMAP D4b."""
+        from ..pipeline.upscaler import UpscalerPipeline, build_esrgan_pipeline
+
+        kind = spec.params.get("kind")
+        if kind in self._DIFFUSION_UPSCALERS:
+            _unported(f"engine {spec.id}: upscaler kind {kind!r}", "D4b")
+        state = self.spec_state_dict(spec)
+        if kind in ("hat", "swinir"):
+            from ..models import hat, swinir
+
+            load, rand, test = {
+                "hat": (hat.load_hat, hat.random_hat, hat.HAT_TEST),
+                "swinir": (swinir.load_swinir, swinir.random_swinir,
+                           swinir.SWINIR_TEST)}[kind]
+            if state is not None:
+                model, cfg = load(state, torch.float32, self.device)
+            else:
+                cfg = test
+                model = rand(cfg, 0, torch.float32, self.device)
+            return UpscalerPipeline(model, scale=cfg.scale,
+                                    tile=int(spec.params.get("tile", 64)),
+                                    overlap=cfg.window // 2)
+        return build_esrgan_pipeline(
+            state_dict=state, num_blocks=int(spec.params.get("blocks", 23)),
+            tile=int(spec.params.get("tile", 128)), dtype=self.compute_dtype,
+            device=self.device)
+
     # the hinter kinds a task engine's ``kind:`` (else its task) names
+    _BG_KINDS = ("background_removal", "bg", "inspyrenet")
     _DEPTH_KINDS = ("depth", "midas", "dpt", "zoe", "zoedepth")
     _HINTER_KINDS = _DEPTH_KINDS + (
         "segmentation", "seg", "uniformer", "normal", "bae", "baenormal",
@@ -491,17 +538,17 @@ class EngineManager:
         edges, informative-drawings line art, DexiNed edges, OpenPose
         (the body CPM from a checkpoint, else the small PoseNet; top-down
         refinement unless ``refine: none``), UniFormer segmentation, BAE
-        normals and M-LSD lines; the models random-init at the JAX
-        package's sizes without a checkpoint. A checkpoint that resolves
-        and does not load raises (where the JAX package random-inits a
-        DexiNed or a ZoeDepth trunk). Background removal (InSPyReNet) is
-        not ported yet; an unknown kind has no pipeline (None)."""
+        normals, M-LSD lines and background removal (InSPyReNet, RGBA
+        out: ``_build_background_removal``); the models random-init at the
+        JAX package's sizes without a checkpoint. A checkpoint that
+        resolves and does not load raises (where the JAX package
+        random-inits a DexiNed or a ZoeDepth trunk). An unknown kind has no
+        pipeline (None)."""
         kind = spec.params.get("kind") or spec.task
         seed = int(spec.params.get("seed", 0))
         dtype, device = self.compute_dtype, self.device
-        if kind in ("background_removal", "bg", "inspyrenet"):
-            _unported(f"engine {spec.id}: task {spec.task!r} (kind "
-                      f"{kind!r})", "D3b")
+        if kind in self._BG_KINDS:
+            return self._build_background_removal(spec, seed)
         if kind not in self._HINTER_KINDS:
             return None
         state = self.spec_state_dict(spec)
@@ -611,6 +658,56 @@ class EngineManager:
                 return out if out.shape[-1] == 3 else out.repeat(1, 1, 1, 3)
 
         run.models, run.size = models, size     # what it runs, at what size
+        return run
+
+    def _build_background_removal(self, spec: EngineSpec, seed: int):
+        """InSPyReNet in the manager's dtype, on the JAX manager's geometry
+        (the reference's inspyrenet_pipeline): the image padded at the top
+        and left to a square (reflected when both pads are shorter than
+        the image, else edge-replicated) of a multiple of 32, or, past
+        ``max_res`` (1280, rounded up to a multiple of 32), of its long
+        side, resized to max_res for the model and its map resized back
+        (bilinear as jax.image.resize, which antialiases the downscale);
+        past twice max_res the map is refined by a guided filter of the
+        image (radius 32, eps 1e-6; the larger of the two kept); then
+        (map - 0.2) / 0.8 clipped as the alpha of the RGBA image out, f32.
+        """
+        from ..models import inspyrenet as isp
+        from ..ops import images as I
+        from ..ops.resize import resize
+
+        dtype, device = self.compute_dtype, self.device
+        state = self.spec_state_dict(spec)
+        model = isp.load_inspyrenet(state, dtype, device)[0] \
+            if state is not None else isp.random_inspyrenet(
+                isp.SWIN_TEST, 64, seed, dtype, device)
+        max_res = -(-int(spec.params.get("max_res", 1280)) // 32) * 32
+
+        def run(img):
+            rgb = torch.as_tensor(img).to(device, torch.float32)[..., :3]
+            b, h, w, _ = rgb.shape
+            scaled = max(h, w) > max_res
+            maxdim = max(h, w) if scaled else \
+                max(-(-h // 32) * 32, -(-w // 32) * 32)
+            ph, pw = maxdim - h, maxdim - w
+            sample = torch.nn.functional.pad(
+                rgb.permute(0, 3, 1, 2), (pw, 0, ph, 0),
+                mode="reflect" if ph < h and pw < w else "replicate"
+            ).permute(0, 2, 3, 1)
+            with torch.inference_mode():
+                if scaled:
+                    sample = resize(sample, (max_res, max_res), "bilinear")
+                pred = model(sample)
+                if scaled:
+                    pred = resize(pred, (maxdim, maxdim), "bilinear")
+                pred = pred[:, ph:, pw:]
+                if scaled and max_res / maxdim < 0.5:
+                    gp = I.guided_filter(rgb, pred, radius=32, eps=1e-6)
+                    pred = torch.maximum(gp.clamp(0.0, 1.0), pred)
+                pred = ((pred - 0.2) / 0.8).clamp(0.0, 1.0)
+                return torch.cat([rgb, pred], dim=-1)
+
+        run.models, run.size = (model,), max_res
         return run
 
     def load_model_entry(self, ref: str):
@@ -789,14 +886,19 @@ class EngineManager:
         scale-shift conditioning does not build) once its weights are
         resident, its UNet taking 4 input channels (txt2img and every
         mode), 9 (inpainting) or 5 (depth2img); a hinter engine (depth,
-        edge, line art, pose, segmentation, normals, lines), which loads at
-        first use, once the engines have loaded, as in the JAX package.
-        Background removal (ROADMAP D3b) and the upscalers (D4) are not
-        ready, since each of their requests would answer UNIMPLEMENTED."""
+        edge, line art, pose, segmentation, normals, lines, background
+        removal) or an image-space upscaler (ESRGAN, SwinIR, HAT), which
+        loads at first use, once the engines have loaded, as in the JAX
+        package. The diffusion upscalers and face restoration (ROADMAP
+        D4b) are not ready, since each of their requests would answer
+        UNIMPLEMENTED."""
         if spec.task in ("depth", "edge", "hinter", "pose", "segmentation",
-                         "normal"):
-            return self._loaded and \
-                (spec.params.get("kind") or spec.task) in self._HINTER_KINDS
+                         "normal", "background_removal"):
+            return self._loaded and (spec.params.get("kind") or spec.task) \
+                in self._HINTER_KINDS + self._BG_KINDS
+        if spec.task == "upscaler":
+            return self._loaded and spec.params.get("kind") not in \
+                self._DIFFUSION_UPSCALERS
         ms = self._modelsets.get(spec.id)
         if spec.task != "generate" or ms is None:
             return False

@@ -36,9 +36,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.resize import resize
-from .dpt import load_state
-from .hinters import _fold_bn, f32, identity_bn
-from .layers import conv1x1_f32, conv_nchw, linspace, nchw, nhwc, random_init
+from .layers import (conv1x1_f32, conv_nchw, f32, fold_bn, identity_bn,
+                     linspace, load_state, nchw, nhwc, random_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -327,7 +326,7 @@ def load_baenormal(state: dict, dtype=torch.float32, device="cuda"):
         if w.ndim == 3:                         # conv1d [out, in, 1]
             w = w[..., None]
         b = f32(state.get(f"{key}.bias", np.zeros(w.shape[0], np.float32)))
-        w, b = _fold_bn(w, b, state, bn, eps)
+        w, b = fold_bn(w, b, state, bn, eps)
         pre = names[id(conv)]
         values[f"{pre}.weight"], values[f"{pre}.bias"] = w, b
     model = load_state(model, lambda p: values[p], "baenormal")

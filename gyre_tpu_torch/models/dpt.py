@@ -44,7 +44,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import attention
-from .layers import conv_nchw, nchw, nhwc
+from .layers import conv_nchw, load_state, nchw, nhwc, state_shape
 
 
 @dataclass(frozen=True)
@@ -404,47 +404,22 @@ def _default_hooks(layers: int) -> tuple:
     return tuple(q * (k + 1) - 1 for k in range(4))
 
 
-def _shape(state, key):
-    return tuple(state[key].shape)
-
-
 def _config(state, midas: bool) -> DPTConfig:
     key = midas_key if midas else hf_key
-    pos = _shape(state, key("pos"))
+    pos = state_shape(state, key("pos"))
     hidden = pos[-1]
     blocks = "pretrained.model.blocks." if midas else "dpt.encoder.layer."
     layers = 1 + max(int(k[len(blocks):].split(".")[0]) for k in state
                      if k.startswith(blocks))
     return DPTConfig(
         hidden=hidden, layers=layers, heads=max(1, hidden // 64),
-        mlp=_shape(state, key("blocks.0.fc1.weight"))[0],
-        patch=_shape(state, key("patch.weight"))[-1],
+        mlp=state_shape(state, key("blocks.0.fc1.weight"))[0],
+        patch=state_shape(state, key("patch.weight"))[-1],
         hooks=_default_hooks(layers),
-        neck_ch=tuple(_shape(state, key(f"reassemble.{i}.proj.weight"))[0]
+        neck_ch=tuple(state_shape(state, key(f"reassemble.{i}.proj.weight"))[0]
                       for i in range(4)),
-        fusion=_shape(state, key("convs.0.weight"))[0],
+        fusion=state_shape(state, key("convs.0.weight"))[0],
         grid=int(round((pos[1] - 1) ** 0.5)))
-
-
-def load_state(model: nn.Module, fetch, name: str):
-    """Fill every parameter of ``model`` from ``fetch(param_name)`` (a
-    tensor or array in torch's layout; KeyError when the source lacks it),
-    each checked against the parameter's shape."""
-    with torch.no_grad():
-        for pname, p in model.named_parameters():
-            try:
-                t = fetch(pname)
-            except KeyError as e:
-                raise ValueError(f"{name}: no key {e.args[0]} (for "
-                                 f"{pname})") from None
-            t = torch.as_tensor(np.asarray(t) if not torch.is_tensor(t)
-                                else t)
-            if tuple(t.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: {pname} has shape "
-                                 f"{tuple(t.shape)}, expected "
-                                 f"{tuple(p.shape)}")
-            p.copy_(t.to(p.dtype))
-    return model
 
 
 def load_dpt(state: dict, dtype=torch.float32, device="cuda"

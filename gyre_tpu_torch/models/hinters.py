@@ -36,39 +36,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.resize import resize
-from .dpt import load_state
-from .layers import conv1x1_f32, conv_nchw, nchw, nhwc, random_init
+from .layers import (conv1x1_f32, conv_nchw, f32, fold_bn, identity_bn,
+                     load_state, nchw, nhwc, random_init)
 
 _VGG_STAGES = ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3))
 _HED_MEAN = (104.0, 117.0, 123.0)
-
-
-def f32(v) -> np.ndarray:
-    """A checkpoint value (a torch tensor of any float dtype, or an array)
-    as a float32 numpy array."""
-    if torch.is_tensor(v):
-        return v.detach().float().cpu().numpy()
-    return np.asarray(v, np.float32)
-
-
-def _fold_bn(w, b, state, pre, eps=1e-5):
-    """Inference BatchNorm ``pre`` folded into the conv before it (OIHW w;
-    numpy f32, as the JAX package folds); none when the state lacks it."""
-    if pre is None or f"{pre}.weight" not in state:
-        return w, b
-    s = f32(state[f"{pre}.weight"]) / np.sqrt(
-        f32(state[f"{pre}.running_var"]) + np.float32(eps))
-    return (w * s[:, None, None, None],
-            (b - f32(state[f"{pre}.running_mean"])) * s +
-            f32(state[f"{pre}.bias"]))
-
-
-def identity_bn(c: int, eps: float = 1e-5) -> dict:
-    """A BatchNorm's four entries that fold to the identity (running
-    variance 1 - eps), for the exporters."""
-    return {"weight": np.ones(c, np.float32), "bias": np.zeros(c, np.float32),
-            "running_mean": np.zeros(c, np.float32),
-            "running_var": np.full(c, 1.0 - eps, np.float32)}
 
 
 def _put(out: dict, pre: str, conv, bias: bool = True, bn: str | None = None,
@@ -455,7 +427,7 @@ def load_dexined(state: dict, dtype=torch.float32,
         n_out = w.shape[1] if transposed else w.shape[0]
         b = f32(state.get(f"{key}.bias", np.zeros(n_out, np.float32)))
         if not transposed:
-            w, b = _fold_bn(w, b, state, bn)
+            w, b = fold_bn(w, b, state, bn)
         pre = names[id(conv)]
         values[f"{pre}.weight"], values[f"{pre}.bias"] = w, b
     return load_state(model, lambda p: values[p], "dexined").to_compute(

@@ -15,6 +15,9 @@ Conventions:
     and conv HWIO; the bridge converts.
   * Compute is bf16 on the card; normalisation statistics and softmax in
     f32.
+
+Below them, the checkpoint helpers that the task models' loaders and
+exporters share: BatchNorm folding, strict loading by key, export by key.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import attention as attn_ops
@@ -46,6 +50,14 @@ def conv2d(p: Params, x, stride: int = 1, padding: int | None = None):
     pad = w.shape[2] // 2 if padding is None else padding
     y = F.conv2d(x.permute(0, 3, 1, 2), w, b, stride=stride, padding=pad)
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def conv_nhwc(conv, x, stride: int = 1, padding: int | None = None):
+    """NHWC x through an nn.Conv2d's weights, as ``conv2d`` pads."""
+    p = {"w": conv.weight}
+    if conv.bias is not None:
+        p["b"] = conv.bias
+    return conv2d(p, x, stride, padding)
 
 
 def conv2d_tiled(p: Params, x, stride: int = 1, tiling_x: bool = False,
@@ -284,8 +296,6 @@ def random_init(model, seed: int):
     uniform in +-1/sqrt(fan_in) (the JAX package's conv_init and
     linear_init; fan_in: the inputs a weight sees, a transposed conv's
     in-channels x taps), biases zero, norm scales one and shifts zero."""
-    import torch.nn as nn
-
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     norms = (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm2d)
@@ -306,3 +316,112 @@ def random_init(model, seed: int):
                 p.copy_((torch.rand(p.shape, generator=gen, device=dev) * 2
                          - 1) * lim)
     return model
+
+
+# ------------------------------------------------- checkpoint helpers
+
+
+def f32(v) -> np.ndarray:
+    """A checkpoint value (a torch tensor of any float dtype, or an array)
+    as a float32 numpy array."""
+    if torch.is_tensor(v):
+        return v.detach().float().cpu().numpy()
+    return np.asarray(v, np.float32)
+
+
+def fold_bn(w, b, state, pre, eps=1e-5):
+    """Inference BatchNorm ``pre`` folded into the conv before it (OIHW w;
+    numpy f32, as the JAX package folds); none when the state lacks it."""
+    if pre is None or f"{pre}.weight" not in state:
+        return w, b
+    s = f32(state[f"{pre}.weight"]) / np.sqrt(
+        f32(state[f"{pre}.running_var"]) + np.float32(eps))
+    return (w * s[:, None, None, None],
+            (b - f32(state[f"{pre}.running_mean"])) * s +
+            f32(state[f"{pre}.bias"]))
+
+
+def identity_bn(c: int, eps: float = 1e-5) -> dict:
+    """A BatchNorm's four entries that fold to the identity (running
+    variance 1 - eps), for the exporters."""
+    return {"weight": np.ones(c, np.float32), "bias": np.zeros(c, np.float32),
+            "running_mean": np.zeros(c, np.float32),
+            "running_var": np.full(c, 1.0 - eps, np.float32)}
+
+
+def state_shape(state, key) -> tuple:
+    return tuple(state[key].shape)
+
+
+def unwrap_basicsr(state: dict) -> dict:
+    """A BasicSR .pth's ``params`` / ``params_ema`` nesting, dropped."""
+    if "params" in state and isinstance(state["params"], dict):
+        state = state["params"]
+    if "params_ema" in state and isinstance(state["params_ema"], dict):
+        state = state["params_ema"]
+    return state
+
+
+def load_state(model: nn.Module, fetch, name: str):
+    """Fill every parameter of ``model`` from ``fetch(param_name)`` (a
+    tensor or array in torch's layout; KeyError when the source lacks it),
+    each checked against the parameter's shape."""
+    with torch.no_grad():
+        for pname, p in model.named_parameters():
+            try:
+                t = fetch(pname)
+            except KeyError as e:
+                raise ValueError(f"{name}: no key {e.args[0]} (for "
+                                 f"{pname})") from None
+            t = torch.as_tensor(np.asarray(t) if not torch.is_tensor(t)
+                                else t)
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: {pname} has shape "
+                                 f"{tuple(t.shape)}, expected "
+                                 f"{tuple(p.shape)}")
+            p.copy_(t.to(p.dtype))
+    return model
+
+
+def load_keyed(model: nn.Module, state: dict, pairs, name: str,
+               buffers=()):
+    """Fill ``model`` from a torch-layout ``state`` through (module prefix
+    or bare parameter, published key or prefix) ``pairs``: strict, so a
+    missing or misshapen key raises ValueError and a key left unread
+    (``buffers`` tokens excepted) KeyError."""
+    values, used = {}, set()
+    params = dict(model.named_parameters())
+    for mine, theirs in pairs:
+        if mine in params:
+            values[mine] = theirs
+            continue
+        for leaf in ("weight", "bias"):
+            if f"{mine}.{leaf}" in params:
+                values[f"{mine}.{leaf}"] = f"{theirs}.{leaf}"
+
+    def fetch(pname):
+        key = values[pname]
+        used.add(key)
+        return f32(state[key])
+
+    load_state(model, fetch, name)
+    left = sorted(k for k in state if k not in used and
+                  not any(tok in k for tok in buffers))
+    if left:
+        raise KeyError(f"{name} loader left {len(left)} keys unconsumed: "
+                       + ", ".join(left[:8]))
+    return model
+
+
+def export_keyed(model: nn.Module, pairs) -> dict:
+    """``load_keyed``'s inverse: the parameters under their published keys,
+    f32 numpy."""
+    params = dict(model.named_parameters())
+    out = {}
+    for mine, theirs in pairs:
+        for pname, key in ((mine, theirs),
+                           (f"{mine}.weight", f"{theirs}.weight"),
+                           (f"{mine}.bias", f"{theirs}.bias")):
+            if pname in params:
+                out[key] = params[pname].detach().float().cpu().numpy()
+    return out

@@ -215,7 +215,7 @@ def load_clip_model_params(*_, **__):
 
 
 def load_kunet_params(*_, **__):
-    _not_ported("k-upscaler UNet", "D4")
+    _not_ported("k-upscaler UNet", "D4b")
 
 
 # ------------------------------------------------------------------ files

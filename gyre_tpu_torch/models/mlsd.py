@@ -36,9 +36,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.resize import resize
-from .dpt import load_state
-from .hinters import _fold_bn, f32, identity_bn
-from .layers import conv1x1_f32, conv_nchw, linspace, nchw, nhwc, random_init
+from .layers import (conv1x1_f32, conv_nchw, f32, fold_bn, identity_bn,
+                     linspace, load_state, nchw, nhwc, random_init)
 
 # the inverted-residual plan (t, c, n, s): the published net stops after
 # the 96-channel stage
@@ -295,7 +294,7 @@ def load_mlsd(state: dict, dtype=torch.float32, device="cuda") -> MLSD:
         if bn is not None:
             used.update(f"{bn}.{k}" for k in ("weight", "bias",
                                               "running_mean", "running_var"))
-            w, b = _fold_bn(w, b, state, bn)
+            w, b = fold_bn(w, b, state, bn)
         pre = names[id(conv)]
         values[f"{pre}.weight"], values[f"{pre}.bias"] = w, b
     left = [k for k in state if k not in used

@@ -281,8 +281,6 @@ def _module_from_jax(model, params, name: str):
     module lacks, or one it has that the tree lacks, raises."""
     import torch.nn as nn
 
-    from . import dpt
-
     suffix = {"weight": ("w", "g", "scale"), "bias": ("b", "bias")}
     consumed = set()
 
@@ -317,7 +315,7 @@ def _module_from_jax(model, params, name: str):
             return a
         raise KeyError(pname)
 
-    dpt.load_state(model, fetch, name)
+    L.load_state(model, fetch, name)
     left = [p for p in _jax_leaf_paths(params) if p not in consumed]
     if left:
         raise ValueError(f"{name}: JAX params leaves the port does not "
@@ -426,3 +424,49 @@ def mlsd_from_jax(params, *, dtype=torch.float32, device="cuda"):
                                 for blk in blocks])
     return _module_from_jax(model, tree, "mlsd").to_compute(
         dtype, torch.device(device))
+
+
+# ------------------------------------ upscalers, background removal (D3b, D4)
+
+
+def swinir_from_jax(params, cfg, *, dtype=torch.float32, device="cuda"):
+    """The JAX package's SwinIR params at ``cfg`` -> the port's SwinIR, as
+    strict as from_jax_params (so are the bridges below)."""
+    from . import swinir
+
+    return _module_from_jax(swinir.SwinIR(cfg), params, "swinir").to_compute(
+        dtype, torch.device(device))
+
+
+def hat_from_jax(params, cfg, *, dtype=torch.float32, device="cuda"):
+    from . import hat
+
+    return _module_from_jax(hat.HAT(cfg), params, "hat").to_compute(
+        dtype, torch.device(device))
+
+
+def esrgan_from_jax(params, *, dtype=torch.float32, device="cuda"):
+    """The JAX package's RRDBNet params; blocks and widths from their
+    shapes."""
+    from . import esrgan
+
+    body = params["body"]
+    nf = int(np.shape(params["conv_first"]["w"])[-1])
+    gc = int(np.shape(body[0]["rdb1"]["conv1"]["w"])[-1]) if body else 32
+    model = esrgan.RRDBNet(len(body), nf, gc,
+                           int(np.shape(params["conv_first"]["w"])[2]),
+                           int(np.shape(params["conv_last"]["w"])[-1]))
+    return _module_from_jax(model, params, "esrgan").to_compute(
+        dtype, torch.device(device))
+
+
+def inspyrenet_from_jax(params, cfg, *, dtype=torch.float32, device="cuda"):
+    """The JAX package's InSPyReNet params at trunk ``cfg`` -> the port's
+    InSPyReNet (its decoder depth from the params); the decoder's convs
+    are OIHW on both sides."""
+    from . import inspyrenet
+
+    depth = int(np.shape(params["decoder"]["conv2"]["w"])[0])
+    return _module_from_jax(inspyrenet.InSPyReNet(cfg, depth), params,
+                            "inspyrenet").to_compute(dtype,
+                                                     torch.device(device))

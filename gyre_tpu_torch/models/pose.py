@@ -35,8 +35,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .dpt import load_state
-from .layers import conv1x1_f32, conv_nchw, linspace, nchw, nhwc, random_init
+from .layers import (conv1x1_f32, conv_nchw, linspace, load_state, nchw,
+                     nhwc, random_init)
 
 N_KEYPOINTS = 18
 

@@ -13,7 +13,7 @@ depth and heads of each level (SDXL), and SDXL's "text_time"
 conditioning (``added_cond``: the pooled text and the size/crop time ids,
 through ``add_embed`` into the time embedding). Not ported yet, and
 raising when asked for: the upscalers' class and scale-shift time
-conditioning (ROADMAP D4) and token merging. ControlNet residuals
+conditioning (ROADMAP D4b) and token merging. ControlNet residuals
 (``down_residuals``, ``mid_residual``) and T2I-adapter features
 (``adapter_states``) are added as in the JAX package.
 """
@@ -36,7 +36,7 @@ def _check_config(cfg: UNetConfig):
     if unported:
         raise NotImplementedError(
             f"UNet config features of the upscalers not ported to "
-            f"gyre_tpu_torch yet (ROADMAP D4): {unported}")
+            f"gyre_tpu_torch yet (ROADMAP D4b): {unported}")
 
 
 # ------------------------------------------------------------ param specs
@@ -235,7 +235,7 @@ def apply(params: Params, cfg: UNetConfig, x, timesteps, context, *,
     if class_labels is not None:
         raise NotImplementedError(
             "class_labels (the x4 upscaler's noise level) are not ported "
-            "to gyre_tpu_torch yet (ROADMAP D4)")
+            "to gyre_tpu_torch yet (ROADMAP D4b)")
     if tome_ratio > 0:
         raise NotImplementedError(
             "token merging is not ported to gyre_tpu_torch yet (ROADMAP "

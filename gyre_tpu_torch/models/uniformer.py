@@ -38,9 +38,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.resize import resize
-from .dpt import load_state
-from .hinters import f32, identity_bn
-from .layers import attention, conv1x1_f32, conv_nchw, nchw, nhwc, random_init
+from .layers import (attention, conv1x1_f32, conv_nchw, f32, identity_bn,
+                     load_state, nchw, nhwc, random_init)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,10 +5,10 @@ Counterpart of gyre_tpu/services/adjustments.py. The pure image ops run
 through ops/images.py. The model-backed ones borrow the manager's task
 engine for their task (``task_pipeline``; an ImageAdjustment's own
 ``engine_id`` picks one): a configured depth (MiDaS DPT, ZoeDepth), edge
-(HED, DexiNed, line art), segmentation (UniFormer), pose (OpenPose) or
-normal (BAE) engine runs (models/); a configured background-removal
-engine raises NotImplementedError naming ROADMAP D3b (InSPyReNet is not
-ported yet). Only where no engine of the task is configured does an op
+(HED, DexiNed, line art), segmentation (UniFormer), pose (OpenPose),
+normal (BAE) or background-removal (InSPyReNet: its RGBA's alpha is the
+subject mask) engine runs (models/). Only where no engine of the task is
+configured does an op
 take the JAX package's tensor fallback: sobel edges, the luminance depth
 proxy, a palletised blur, normals from luminance, the saliency threshold.
 So a chain never answers with an image that the JAX package, configured

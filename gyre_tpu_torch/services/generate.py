@@ -26,15 +26,18 @@ An artifact's ``adjustments`` and ``postAdjustments`` (ImageAdjustment
 chains, services/adjustments.py) apply at the stages the JAX servicer
 applies them, on the dispatcher's thread: so an RGBA init image's alpha
 becomes a feathered mask, and an ordinary image a depth, canny, colour or
-shuffle hint. A request addressed to a ``depth`` task engine transforms its
-init image through that engine and answers one image. The engine's
+shuffle hint. A request addressed to a task engine (depth, edge, line
+art, pose, segmentation, normals, lines, background removal, or an
+image-space upscaler: ESRGAN, SwinIR, HAT) transforms its init image
+through that engine and answers one image (RGBA from background removal,
+4x the init image from an upscaler). The engine's
 ``options:`` are read as the JAX servicer reads them (request values win),
 ``cfg_sequential`` among them, and any other key is ignored. What the port
 lacks answers UNIMPLEMENTED, naming its ROADMAP item, and is never ignored
 silently where it would change the image: CLIP guidance (C7), ToMe (C6),
-the other task engines (D3, D4). The safety checker is not ported (ROADMAP
-C6): as the JAX package without trained checker weights, nothing is
-flagged.
+the diffusion upscalers and face restoration (D4b). The safety checker is
+not ported (ROADMAP C6): as the JAX package without trained checker
+weights, nothing is flagged.
 """
 
 from __future__ import annotations

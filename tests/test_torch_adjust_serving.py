@@ -6,7 +6,8 @@ color, shuffle, hed) requests extract (1e-4, hed 1e-3; the shuffle given
 the JAX flow), a request addressed to a depth or edge engine (its PNG
 within one level), the engine of config/examples.yaml with its
 ``options:``, the options the port lacks (ToMe C6, CLIP guidance C7) and
-background removal (D3b) answering UNIMPLEMENTED, a request to the normal
+the diffusion upscaler and CodeFormer (D4b) answering UNIMPLEMENTED
+while background removal answers, a request to the normal
 engine (which the JAX servicer runs as a generation),
 ``cfg_sequential`` reaching the pipeline; then client.py itself against
 the port's server for each."""
@@ -229,14 +230,19 @@ def test_unported_hinter_engines_are_unimplemented(depth_ckpt, hed_ckpt,
     config/engines/utility.yaml's edge engine over a HED checkpoint,
     client.py's ``--hint_from_image hed:`` hint equals the JAX servicer's
     (1e-3) and a request to the engine answers its PNG (within one
-    level); a background-removal engine (InSPyReNet, ROADMAP D3b) answers
-    UNIMPLEMENTED naming D3b; the edge engine is ready, background
-    removal is not."""
+    level). The engines still unported answer UNIMPLEMENTED naming their
+    item: the sd-x4 and sd-x2 diffusion upscalers and CodeFormer (ROADMAP
+    D4b; a background-removal engine answered so, naming D3b, until
+    InSPyReNet was ported: it now answers an RGBA image). The edge and
+    background-removal engines are ready, the D4b engines are not."""
     engines = _engines(depth_ckpt) + [
         {"id": "hed-edge", "task": "edge", "model": hed_ckpt}]
-    tm = TManager(engines + [{"id": "background-removal",
-                              "task": "background_removal"}],
-                  device="cpu", compute_dtype=torch.float32)
+    tm = TManager(engines + [
+        {"id": "background-removal", "task": "background_removal"},
+        {"id": "upscaler-x4", "task": "upscaler", "kind": "sd-x4"},
+        {"id": "upscaler-x2", "task": "upscaler", "kind": "sd-x2"},
+        {"id": "codeformer", "task": "face_restore"}],
+        device="cpu", compute_dtype=torch.float32)
     jm = JManager(engines, compute_dtype=jnp.float32)
     try:
         tm.load_engines()
@@ -261,14 +267,20 @@ def test_unported_hinter_engines_are_unimplemented(depth_ckpt, hed_ckpt,
         ji = timages.decode_png(ji[0].artifacts[0].binary)
         assert ti.shape == ji.shape == (1, 64, 64, 3)
         assert np.abs(ti - ji).max() <= 1.0 / 255 + 1e-6
-        context = TContext()
-        with pytest.raises(TAbortError):
-            list(port.Generate(_task_request(tpb, "background-removal"),
-                               context))
-        assert context.code == grpc.StatusCode.UNIMPLEMENTED
-        assert "ROADMAP D3b" in context.details
+        for eid in ("upscaler-x4", "upscaler-x2", "codeformer"):
+            context = TContext()
+            with pytest.raises(TAbortError):
+                list(port.Generate(_task_request(tpb, eid), context))
+            assert context.code == grpc.StatusCode.UNIMPLEMENTED
+            assert "ROADMAP D4b" in context.details
+        bg = list(port.Generate(_task_request(tpb, "background-removal"),
+                                TContext()))
+        bg = timages.decode_png(bg[0].artifacts[0].binary)
+        assert bg.shape == (1, 64, 64, 4)
         ready = {s["id"]: s["ready"] for s in tm.status()}
-        assert ready["hed-edge"] and not ready["background-removal"]
+        assert ready["hed-edge"] and ready["background-removal"]
+        assert not any(ready[e] for e in ("upscaler-x4", "upscaler-x2",
+                                          "codeformer"))
     finally:
         tm.dispatcher.stop()
         jm.dispatcher.stop()

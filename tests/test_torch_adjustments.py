@@ -5,8 +5,8 @@ chains that client.py sends for --mask_from_image_alpha and
 --hint_from_image, background removal's modes and reapply, a depth
 engine chosen by ImageAdjustment.engine_id, and the task-engine rule (the
 JAX package's tensor fallback where no engine of the task is configured,
-the configured hinter engine's image otherwise, NotImplementedError
-naming ROADMAP D3b for background removal, which the port lacks).
+the configured hinter engine's image otherwise, background removal's
+InSPyReNet among them).
 Tolerance 1e-5 absolute (1e-4 for chains through infill and the DPT
 engines). The shuffle is given the JAX package's flow."""
 
@@ -260,6 +260,7 @@ def hinter_ckpts(tmp_path_factory):
     engines name them (the JAX package reads the same files)."""
     from gyre_tpu_torch.models import baenormal as tbae
     from gyre_tpu_torch.models import hinters as th
+    from gyre_tpu_torch.models import inspyrenet as tisp
     from gyre_tpu_torch.models import pose as tpose
     from gyre_tpu_torch.models import uniformer as tuni
 
@@ -272,7 +273,9 @@ def hinter_ckpts(tmp_path_factory):
             tuni.random_uniformer(seg, 2, device="cpu")),
         "normal": tbae.state_dict_baenormal(
             tbae.random_baenormal(tbae.EFFNET_TEST, 2, device="cpu")),
-        "pose": tpose.state_dict_body(tpose.random_body(2, device="cpu"))}
+        "pose": tpose.state_dict_body(tpose.random_body(2, device="cpu")),
+        "background_removal": tisp.state_dict_inspyrenet(
+            tisp.random_inspyrenet(tisp.SWIN_TEST, 8, 2, device="cpu"))}
     root = tmp_path_factory.mktemp("hinters")
     paths = {}
     for task, state in states.items():
@@ -289,29 +292,14 @@ def test_unported_task_engine_raises_naming_d3(task, field, hinter_ckpts):
     """Where an engine of a hinter task is configured, the chain runs it,
     as the JAX package does: HED edges (1e-3), the segmentation render
     (the same class on 95 % of pixels: random weights leave near-ties),
-    BAE normals (1e-3) and the OpenPose render (equal; ``refine: none``,
-    since the top-down crop is 368 px). Background removal (InSPyReNet) is
-    not ported: the chain raises naming ROADMAP D3b, and without such an
-    engine the fallback is the JAX package's. (Before the hinters were
-    ported, every one of these raised naming D3.)"""
+    BAE normals (1e-3), the OpenPose render (equal; ``refine: none``,
+    since the top-down crop is 368 px) and background removal's RGBA
+    (InSPyReNet, 1e-3); without such an engine the fallback is the JAX
+    package's. (Before the hinters were ported, every one of these raised
+    naming D3, and background removal naming D3b until it was ported.)"""
     bare = TManager([{"id": "gen", "model": "preset/test"}], device="cpu",
                     compute_dtype=torch.float32)
     try:
-        if task == "background_removal":
-            tm = TManager([{"id": "gen", "model": "preset/test"},
-                           {"id": "hinter", "task": task}], device="cpu",
-                          compute_dtype=torch.float32)
-            try:
-                with pytest.raises(NotImplementedError,
-                                   match="ROADMAP D3b"):
-                    tadj.apply_image_adjustment(
-                        torch.from_numpy(RGBA), _chain(tpb, [(field, {})]),
-                        tm)
-            finally:
-                tm.dispatcher.stop()
-            ref, got = _both([(field, {})], RGBA, tm=bare)
-            assert np.abs(ref - got).max() <= 1e-4
-            return
         spec = [{"id": "gen", "model": "preset/test"},
                 {"id": "hinter", "task": task, "model": hinter_ckpts[task],
                  **({"refine": "none"} if task == "pose" else {})}]
@@ -322,7 +310,8 @@ def test_unported_task_engine_raises_naming_d3(task, field, hinter_ckpts):
         finally:
             tm.dispatcher.stop()
             jm.dispatcher.stop()
-        assert got.shape == ref.shape == (1, 64, 64, 3)
+        channels = 4 if task == "background_removal" else 3
+        assert got.shape == ref.shape == (1, 64, 64, channels)
         if task == "segmentation":
             assert (ref == got).all(axis=-1).mean() >= 0.95
         elif task == "pose":

@@ -72,7 +72,8 @@ def test_status_reports_weight_provenance(weight_root):
     m = _manager([{"id": "loaded", "model": "org/tiny", "default": True},
                   {"id": "random", "model": {"preset": "test", "seed": 3}},
                   {"id": "off", "model": "org/tiny", "enabled": False},
-                  {"id": "up", "task": "upscaler"}], weight_root)
+                  {"id": "up", "task": "upscaler", "kind": "sd-x4"}],
+                 weight_root)
     try:
         m.load_engines()
         status = {s["id"]: s for s in m.status()}
@@ -80,7 +81,8 @@ def test_status_reports_weight_provenance(weight_root):
         assert status["random"]["weights"] == "random"
         assert status["off"]["weights"] == "pending"
         assert status["loaded"]["ready"] and not status["off"]["ready"]
-        # task engines: not ready, the port has no task pipeline (D)
+        # the diffusion upscaler: not ready, the port has no pipeline for
+        # it (D4b)
         assert not status["up"]["ready"]
         ref = tload.load_modelset(os.path.join(weight_root, "org--tiny"),
                                   tconfigs.SD_TEST, dtype=torch.float32,
@@ -375,15 +377,19 @@ def _ready_by_rpc_and_status(manager):
 
 
 def test_task_engine_is_not_ready(weight_root):
+    """A task engine the port has no pipeline for (the sd-x4 diffusion
+    upscaler, D4b; before ESRGAN was ported, any upscaler) is not ready;
+    a depth engine (D2) and an ESRGAN upscaler are, once the engines have
+    loaded."""
     m = _manager([{"id": "gen", "model": "org/tiny", "default": True},
-                  {"id": "up", "task": "upscaler"},
+                  {"id": "up", "task": "upscaler", "kind": "sd-x4"},
+                  {"id": "esrgan", "task": "upscaler"},
                   {"id": "depth", "task": "depth"}], weight_root)
     try:
         m.load_engines()
         listed, status = _ready_by_rpc_and_status(m)
-        # a depth engine (D2) is ready once the engines have loaded
         assert listed == status == {"gen": True, "up": False,
-                                    "depth": True}
+                                    "esrgan": True, "depth": True}
         with pytest.raises(NotImplementedError, match="ROADMAP D"):
             m.modelset("up")
     finally:
@@ -408,9 +414,9 @@ def test_shipped_config_reports_only_servable_engines_ready(shipped,
                                                             weight_root):
     """Every enabled engine of the shipped config/engines.yaml: the
     4-channel SD 1.5 engine, the 9-channel inpainting engine, the MiDaS
-    depth engine and the hinter engines (edge, lines, pose, segmentation,
-    DexiNed, line art, normals) are ready; background removal (ROADMAP
-    D3b) and the upscaler (D4) are not."""
+    depth engine, the hinter engines (edge, lines, pose, segmentation,
+    DexiNed, line art, normals), background removal and the ESRGAN
+    upscaler are ready: every enabled engine."""
     manager = tserver.build_manager(tserver.parse_args(
         ["--enginecfg", shipped, "--device", "cpu", "--dtype", "float32",
          "--weight_root", weight_root]))
@@ -424,10 +430,10 @@ def test_shipped_config_reports_only_servable_engines_ready(shipped,
                 "lineart"} <= tasks
         ready = {SD15, INPAINT, "midas-depth", "hed-edge", "mlsd-lines",
                  "openpose", "segmentation", "dexined-edge", "lineart",
-                 "bae-normal"}
+                 "bae-normal", "background-removal", "esrgan-x4"}
+        assert ready == enabled
         assert {i for i in enabled if status[i]} == ready
         assert {i for i in enabled if listed.get(i)} == ready
-        assert not status["background-removal"] and not status["esrgan-x4"]
     finally:
         manager.dispatcher.stop()
 
