@@ -36,7 +36,12 @@ Phases, each printing one JSON object per line:
                other row has), summed on an "adjust_shapes" line; and
                at the hinters phase's (_hinter_shapes: UniFormer-S's
                self-attention on a 512² image, [1, 1024, 5, 64] and
-               [1, 256, 8, 64]), summed on a "hinter_shapes" line
+               [1, 256, 8, 64]), summed on a "hinter_shapes" line; and
+               at the diffusion upscalers phase's (_upscaler_shapes: the
+               x4 UNet's head dims 8, 16 and 32 and its 64-256 channels
+               at 2 to 8 channels a group, Co = 64 among them; the
+               k-UNet's head dim 64; ToMe's merged token counts 3072, 768,
+               192 and 48), summed on an "upscaler_shapes" line
   4. pipeline  UnifiedPipeline on full-width SD1.5 (random weights from a
                seed): 512x512, 20 steps k_dpmpp_2m, CFG 7.5 (parallel),
                bf16, chunk_steps=10 with a stop_event, uint8 on the device.
@@ -153,8 +158,8 @@ Phases, each printing one JSON object per line:
                RealESRGAN_x4plus (23 RRDB), SwinIR-M x4 classical, HAT-M
                x4 and InSPyReNet-SwinB (embed 128, depths 2/2/18/2,
                window 12, decoder depth 64), served by server.serve beside
-               SD1.5 with a depth ControlNet hintset and an sd-x4 upscaler
-               engine: each "real" and ready (sd-x4 not), its parameters,
+               SD1.5 with a depth ControlNet hintset: each "real" and
+               ready, its parameters,
                bytes and load seconds; background removal at 512²
                (unscaled), 1920x1536 (scaled) and 2816x2304 (scaled,
                guided filter), ESRGAN on a 256² RGBA image (16 tiles of
@@ -176,8 +181,35 @@ Phases, each printing one JSON object per line:
                engine's in-process image, no launches), --hint_from_image
                nobg:depth: (background removal, the depth hint, the mask
                reapplied; launches 921 / 1308 / 1308, within 1 level of
-               the same chain and request in-process), and upscaler-x4
-               answering UNIMPLEMENTED naming ROADMAP D4b
+               the same chain and request in-process)
+  5j. diffusion_upscalers  the D4b engines of config/engines/utility.yaml
+               at full width (random, seed 0, drawn on the card, written
+               to disk: the x4 (UNet 64/128/256/256, 7 channels, class-
+               embedded noise level; CLIP ViT-L; the 3-level VAE) and the
+               x2 (the k-UNet 384/768/768/1536, 4 resnets a block; CLIP
+               ViT-L; the SD VAE) as diffusers directories in f32,
+               CodeFormer (nf 64, 9 layers of 512, 1024 codes) in the
+               codeformer.pth layout in bf16), served by server.serve
+               beside two SD1.5 engines, one with the engine option
+               tome_ratio 0.5: each "real" and ready; the x4 on a 128²
+               image (512² out, 20 steps DPM++ 2M, noise level 20), the
+               x2 on a 512² image (1024² out, 30 steps k_euler), CodeFormer
+               at 512² and at 600x440 (resized to 512² and back), each
+               with its launches against those walked from the configs
+               (_upscaler_paths: x4 K1 32 x 20 + 1, K2a/K2b 44 x 20 + 22;
+               x2 K1 32 x 30 + 2, K2a/K2b 48; CodeFormer none), wall and
+               peak memory; the x4 and x2 in bf16 against the same
+               checkpoints in f32 on the CPU with the same noise
+               (DIFFUSION_CPU_SIZES, DIFFUSION_CPU_STEPS,
+               DIFFUSION_BF16_BOUND), CodeFormer in
+               f32 on both (FACE_INDEX_SHARE, FACE_F32_MEAN_BOUND); the
+               SD1.5 request of phase 4 under ToMe (launches 641 / 908 /
+               908, an image that differs from the unmerged one, its
+               10-step-chunked run equal in every bit, both walls); then
+               client.py's requests over gRPC (-e upscaler-x4 / upscaler-
+               x2 / codeformer -i, and -e sd15-tome), each with its
+               launches and within one level of the same work in-process,
+               and ListEngines' upscale group with both upscalers ready
   5e. sd2      an EngineManager engine on the sd21 preset (OpenCLIP-H,
                linear projections, v-prediction; random, seed 0, bf16):
                768x768, 20 steps k_dpmpp_2m, CFG 7.5, batch 1,
@@ -235,8 +267,9 @@ Phases, each printing one JSON object per line:
                641 / 908 / 908), one Generate over gRPC, suggest_max_batch
 
 After each phase from 5 on it prints what the phase left allocated on the
-card. At the end it prints the sums of the mode, ControlNet, C5, adjust and
-hinter rows, the "c5_paths" line (each sd2/sdxl request's launches and the
+card. At the end it prints the sums of the mode, ControlNet, C5, adjust,
+hinter and upscaler rows, the "c5_paths" and "upscaler_paths" lines (each
+sd2/sdxl request's, and each x4, x2 and ToMe request's, launches and the
 sums over them of phase 3's kernel, plain, library and bound times), then,
 before the last line, the kernels table as one JSON object; the last line
 is {"ok": true, "device": {...}}. Any failed check raises and the script
@@ -570,10 +603,10 @@ def _vae_call_shapes(cfg, size: int, part: str):
     return attns, convs
 
 
-def _launches(parts):
-    """Expected launches of a request of _c5_paths: parts [(count,
-    _c5_calls name)]."""
-    calls = _c5_calls()
+def _launches(parts, calls=None):
+    """Expected launches of a request of _c5_paths (or of another table of
+    ``calls``, _c5_calls by default): parts [(count, call name)]."""
+    calls = calls or _c5_calls()
     k1 = sum(n * len(calls[c][0]) for n, c in parts)
     k2 = sum(n * len(calls[c][1]) for n, c in parts)
     return {"flash_attention": k1, "gn_stats": k2, "gn_silu_conv3x3": k2}
@@ -621,11 +654,12 @@ def _c5_paths():
                                      (1, "sdxl_decode")]}
 
 
-def _path_sums(kernels, parts):
+def _path_sums(kernels, parts, calls=None):
     """Per kernel, a request's launches and the sums over its launches of
     phase 3's median times (kernel, plain, library) and bounds, each
-    launch priced at its shape's row, whichever set the row is in."""
-    calls = _c5_calls()
+    launch priced at its shape's row, whichever set the row is in; the
+    calls of _c5_calls unless ``calls`` is given."""
+    calls = calls or _c5_calls()
     rows = {(name, tuple(r["dims"])): r for name, rs in kernels.items()
             for r in rs}
     out = []
@@ -766,6 +800,134 @@ def _hinter_shapes():
              cfg.head_dim) for si, stride in ((2, 16), (3, 32))]
 
 
+# the diffusion upscalers phase: the x4 upscaler on a 128² image (its
+# latents are the image's size; 512² out, 20 steps of DPM++ 2M at noise
+# level 20), the x2 on a 512² image (64² latents, 2x: 1024² out, 30 steps
+# of k_euler), CodeFormer at its 512² and at a non-square size (resized to
+# 512² and back), ToMe at ratio 0.5 on the SD1.5 request of phase 4
+X4_SIZE = 128
+X2_SIZE = 512
+X4_STEPS, X2_STEPS = 20, 30
+FACE_OTHER_SIZE = (600, 440)
+TOME_RATIO = 0.5
+# the card's upscalers (bf16) against the same checkpoints in f32 on the
+# CPU, with the same noise (the port draws it on the CPU for any device),
+# on small inputs (x4 32² -> 128², x2 64² -> 128²), the x4 at its 20 steps,
+# the x2 at 8 of k_euler (30 of its f32 k-UNet take the CPU a minute):
+# max |card - CPU| over the [0, 1] image. One bf16 rounding a layer
+# through 8-20 UNet calls of random nets, each step's error carried into
+# the next (0.0072 and 0.0080 at 20 and 30 steps on an H100 80GB HBM3 at
+# 700.00 W, PERF.md); a fault (a wrong level, channel or sigma) moves the
+# image by its own spread (~0.1-0.5)
+DIFFUSION_CPU_SIZES = {"upscaler-x4": 32, "upscaler-x2": 64}
+DIFFUSION_CPU_STEPS = {"upscaler-x4": X4_STEPS, "upscaler-x2": 8}
+DIFFUSION_BF16_BOUND = 5e-2
+# CodeFormer runs in f32 on both sides (TF32 off): the share of its 256
+# codebook indices that agree (a near-tie of random logits may flip one
+# token, which repaints a 32x32 block), and the image's mean |diff|
+FACE_INDEX_SHARE = 0.99
+FACE_F32_MEAN_BOUND = 2e-3
+
+
+def _kunet_call_shapes(cfg, size: int, b: int = 2):
+    """(K1 launches, K2 launches) of one k-UNet call at latent size
+    ``size``², walked from the port's spec tree as _unet_call_shapes: a
+    KAttentionBlock is a self-attention where it has one and a
+    cross-attention against 77 tokens; its convs are plain (no K2)."""
+    from gyre_tpu_torch.models import kunet
+
+    specs = kunet.param_specs(cfg)
+    attns = []
+
+    def block(blk, hw):
+        for att in blk.get("attentions", []):
+            c = att["attn2"]["q"]["w"].shape[0]
+            heads = max(1, c // cfg.head_dim)
+            if "attn1" in att:
+                attns.append((b, heads, hw * hw, hw * hw, c // heads))
+            attns.append((b, heads, hw * hw, 77, c // heads))
+
+    last = cfg.levels - 1
+    for li, blk in enumerate(specs["down"]):
+        block(blk, size >> li)
+    for li, blk in enumerate(specs["up"]):
+        block(blk, size >> (last - li))
+    return attns, []
+
+
+def _tome_call_shapes(cfg, size: int, ratio: float, b: int = 2):
+    """_unet_call_shapes under ToMe: each self-attention over T - r merged
+    tokens (ops/tome.py's r at ``ratio``)."""
+    from gyre_tpu_torch.ops import tome
+
+    attns, convs = _unet_call_shapes(cfg, size, b)
+    merged = []
+    for bb, h, tq, tk, d in attns:
+        if tk == tq:
+            tq = tk = tq - tome.merge_count(tq, ratio)
+        merged.append((bb, h, tq, tk, d))
+    return merged, convs
+
+
+def _upscaler_calls():
+    """The model calls of the diffusion upscalers phase, by name: (K1, K2)
+    shapes of one call, as _c5_calls. The x4's UNet at X4_SIZE latents and
+    its 3-level VAE's decode; the x2's SD VAE encode of the X2_SIZE image,
+    its k-UNet at twice the latents and the decode; SD1.5's UNet under
+    ToMe at 64 latents and its decode; parallel CFG: 2 rows a UNet call."""
+    from gyre_tpu_torch.models import configs
+    from gyre_tpu_torch.pipeline import diffusion_upscaler as du
+
+    x4, x2 = du.X4_CONFIG, du.X2_CONFIG
+    lat2 = 2 * X2_SIZE // 8
+    return {
+        "x4_unet": _unet_call_shapes(x4.unet, X4_SIZE),
+        "x4_decode": _vae_call_shapes(x4.vae, X4_SIZE, "decoder"),
+        "x2_encode": _vae_call_shapes(x2.vae, X2_SIZE, "encoder"),
+        "x2_unet": _kunet_call_shapes(x2.unet, lat2),
+        "x2_decode": _vae_call_shapes(x2.vae, lat2, "decoder"),
+        "tome_unet": _tome_call_shapes(configs.SD15.unet, 64, TOME_RATIO),
+        "sd15_decode": _vae_call_shapes(configs.SD15.vae, 64, "decoder"),
+    }
+
+
+def _upscaler_paths():
+    """The requests of the diffusion upscalers phase as model calls, as
+    _c5_paths: one model call a step (k_euler and DPM++ 2M)."""
+    return {"upscaler_x4": [(X4_STEPS, "x4_unet"), (1, "x4_decode")],
+            "upscaler_x2": [(1, "x2_encode"), (X2_STEPS, "x2_unet"),
+                            (1, "x2_decode")],
+            "sd15_tome": [(STEPS, "tome_unet"), (1, "sd15_decode")]}
+
+
+def _upscaler_shapes():
+    """(K1 rows, K2a + K2b rows) of the diffusion upscalers phase that
+    phase 3's other rows lack: the x4 UNet's head dims 8, 16 and 32 and
+    its 64-256 channels, its VAE's mid block (one head of 512 over
+    X4_SIZE² tokens) and its 128-512 channels, the k-UNet's head dim 64
+    and ToMe's merged token counts."""
+    cn_attn, cn_conv = _controlnet_shapes()
+    c5_attn, c5_conv = _c5_shapes()
+    adj_attn, adj_conv = _adjust_shapes()
+    seen_attn = {r[1:6] for r in ATTN_SHAPES + MODE_ATTN_SHAPES + cn_attn +
+                 c5_attn + adj_attn + _hinter_shapes()}
+    seen_conv = {r[1:6] for r in CONV_SHAPES + MODE_CONV_SHAPES + cn_conv +
+                 c5_conv + adj_conv}
+    attns, convs = [], []
+    for call, (a, c) in _upscaler_calls().items():
+        for dims in a:
+            if dims not in seen_attn:
+                seen_attn.add(dims)
+                kind = "cross" if dims[3] == 77 else "self"
+                attns.append((f"{call}_{kind}_{dims[2]}_d{dims[4]}", *dims))
+        for dims in c:
+            if dims not in seen_conv:
+                seen_conv.add(dims)
+                convs.append((f"{call}_{dims[1]}_{dims[2]}_{dims[3]}",
+                              *dims))
+    return attns, convs
+
+
 # K2a alone at two shapes of a batch-8 call, where its launch differs from
 # batch 1's: (name, B, H=W, C, eps, launches per batch-8 call). The UNet
 # runs 16 rows (8 images x 2 CFG rows), the VAE 8.
@@ -812,15 +974,16 @@ def stats_bound(b, m, c):
 
 
 def _row(name, shape, launches, errors, bound_rel, fn, plain, library,
-         bound):
+         bound, plain_reps: int = 10):
     """One phase-3 row: the kernel's (max abs, relative) errors against its
     plain version, checked against ``bound_rel``; median times of kernel,
-    plain version and library call; the bound; launches per batch-1
-    call."""
+    plain version (``plain_reps`` calls a replay) and library call; the
+    bound; launches per batch-1 call."""
     abs_err, err = errors
     row = {"shape": name, "dims": shape, "launches_per_call": launches,
            "max_abs_err": abs_err, "max_abs_err_rel": err,
-           "bound": bound_rel, "ms": _timed(fn), "plain_ms": _timed(plain),
+           "bound": bound_rel, "ms": _timed(fn),
+           "plain_ms": _timed(plain, reps=plain_reps),
            "library_ms": _timed(library), "bound_ms": bound[0],
            "bound_by": bound[1]}
     return row, err <= bound_rel
@@ -892,7 +1055,10 @@ def phase_kernels():
             lambda: A.attention(q, k, v, scale=scale),
             lambda: A.attention_plain(qt, kt, vt, scale),
             lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale),
-            attn_bound(b, h, tq, tk, d)), **extra)
+            attn_bound(b, h, tq, tk, d),
+            # past 4 GiB of f32 logits (the x4's 16384 tokens at 8 heads
+            # and 2 rows: 17 GB), one plain call a replay
+            plain_reps=1 if b * h * tq * tk * 4 > 1 << 32 else 10), **extra)
         del q, k, v, qt, kt, vt
 
     def conv_row(name, b, hw, c, co, eps, launches, **extra):
@@ -963,6 +1129,13 @@ def phase_kernels():
     # the hinters phase's (UniFormer's attention), tagged apart
     for shape in _hinter_shapes():
         attn_row(*shape, 0, hinter=True)
+    # the diffusion upscalers phase's (the x4 UNet and VAE, the k-UNet,
+    # ToMe's merged attention), tagged apart
+    up_attn, up_conv = _upscaler_shapes()
+    for shape in up_attn:
+        attn_row(*shape, 0, upscaler=True)
+    for shape in up_conv:
+        conv_row(*shape, 0, upscaler=True)
     for name, b, hw, c, eps, launches in GN_BATCH8_SHAPES:
         # not in a batch-1 call: no launches of its per-call sums
         record_stats(name, b, hw, c, eps, 0,
@@ -3053,7 +3226,6 @@ def phase_upscalers():
     import shutil
     import tempfile
 
-    import grpc
     import numpy as np
     import torch
 
@@ -3100,7 +3272,6 @@ def phase_upscalers():
             f"model: {paths['hat-x4']}}}\n"
             f"- {{id: background-removal, task: background_removal, "
             f"model: {paths['background-removal']}}}\n"
-            "- {id: upscaler-x4, task: upscaler, kind: sd-x4}\n"
             f"- {{model_id: smoke-cn, model: {cn_path}}}\n"
             "- {hintset_id: hs, controlnet/depth: {aliases: [depth], "
             "model: '@smoke-cn'}}\n")
@@ -3123,8 +3294,6 @@ def phase_upscalers():
         for eid, *_ in table:
             if status[eid] != (True, "real"):
                 failed.append(f"{eid}: status {status[eid]}")
-        if status["upscaler-x4"][0]:
-            failed.append("upscaler-x4 (sd-x4) reported ready")
 
         def measure(name, fn, out_shape, extra=None, profile=False):
             """Warm-up, then the launches, peak memory and the median wall
@@ -3290,18 +3459,6 @@ def phase_upscalers():
         for name, d in diffs.items():
             if d > (1 if name == "nobg_depth" else 1.0 / 255 + 1e-6):
                 failed.append(f"gRPC {name}: {d} off the in-process image")
-        # the diffusion upscaler is not ported: UNIMPLEMENTED naming D4b
-        try:
-            generate(_client_request(ns, argv + [
-                "-e", "upscaler-x4", "-i", paths_in["small"]]))
-            failed.append("upscaler-x4 answered an image")
-        except grpc.RpcError as e:
-            emit({"phase": "upscalers", "check": "upscaler_x4",
-                  "code": str(e.code()), "details": e.details()})
-            if e.code() != grpc.StatusCode.UNIMPLEMENTED or \
-                    "ROADMAP D4b" not in (e.details() or ""):
-                failed.append(f"upscaler-x4 answered {e.code()}: "
-                              f"{e.details()}")
     finally:
         if channel is not None:
             channel.close()
@@ -3314,6 +3471,314 @@ def phase_upscalers():
     emit({"phase": "upscalers", "phase_s": time.perf_counter() - t_phase})
     if failed:
         raise AssertionError("upscalers: " + "; ".join(failed))
+
+
+# ------------------------------------------ diffusion upscalers, CodeFormer
+
+
+def _face_indices(model, x):
+    """CodeFormer's 256 codebook indices for images x (its idx_pred
+    logits' argmax, read by a forward hook) and its output."""
+    import torch
+
+    seen = []
+    hook = model.idx_pred.register_forward_hook(
+        lambda _m, _i, out: seen.append(out.argmax(dim=-1)))
+    try:
+        with torch.inference_mode():
+            out = model(x, 0.5)
+    finally:
+        hook.remove()
+    return seen[0], out
+
+
+def _diffusion_vs_cpu(eid, yaml_entry, card_up, failed):
+    """The card's upscaler (bf16) against a CPU manager's over the same
+    checkpoint in f32, at DIFFUSION_CPU_SIZES and DIFFUSION_CPU_STEPS with
+    the same noise (the port's generators run on the CPU for either
+    device). One line."""
+    import torch
+
+    from gyre_tpu_torch.manager.manager import EngineManager
+
+    t0 = time.perf_counter()
+    size, steps = DIFFUSION_CPU_SIZES[eid], DIFFUSION_CPU_STEPS[eid]
+    x = torch.from_numpy(_scene(size, size))
+    manager = EngineManager([yaml_entry], device="cpu",
+                            compute_dtype=torch.float32)
+    try:
+        cpu_up = manager.task_pipeline("upscaler", eid).upscaler
+        ref = cpu_up(x, steps=steps).float()
+        card = card_up(x.cuda(), steps=steps).float().cpu()
+    finally:
+        manager.dispatcher.stop()
+    err = float((card - ref).abs().max()) if card.shape == ref.shape \
+        else float("inf")
+    emit({"phase": "diffusion_upscalers", "card_vs_cpu_f32": eid,
+          "size": size, "steps": steps, "max_abs_diff": err,
+          "mean_abs_diff": float((card - ref).abs().mean()),
+          "bound": DIFFUSION_BF16_BOUND, "cpu_std": float(ref.std()),
+          "shape": list(card.shape), "seconds": time.perf_counter() - t0})
+    if not err <= DIFFUSION_BF16_BOUND:
+        failed.append(f"{eid}: {err} off the CPU's f32")
+    if float(ref.std()) < 1e-3:
+        failed.append(f"{eid}: a flat CPU image")
+
+
+def phase_diffusion_upscalers():
+    """The D4b engines and ToMe (module docstring, 5j)."""
+    import os
+    import shutil
+    import tempfile
+
+    import grpc
+    import numpy as np
+    import torch
+
+    from gyre_tpu_torch import _build
+    from gyre_tpu_torch.generated import engines_pb2 as epb
+    from gyre_tpu_torch.models import codeformer as cf
+    from gyre_tpu_torch.models import load
+    from gyre_tpu_torch.models.modelset import random_modelset
+    from gyre_tpu_torch.ops import images as I
+    from gyre_tpu_torch.pipeline import diffusion_upscaler as du
+
+    t_phase = time.perf_counter()
+    failed = []
+    tmp = tempfile.mkdtemp(prefix="gyre-smoke-diffusion-")
+    manager = serving = channel = None
+    calls = _upscaler_calls()
+    paths_expect = {name: _launches(parts, calls)
+                    for name, parts in _upscaler_paths().items()}
+    try:
+        # --- full-width random models (seed 0, drawn on the card) on disk:
+        # the x4 and x2 ModelSets as diffusers directories (f32), CodeFormer
+        # in the codeformer.pth layout (bf16)
+        t0 = time.perf_counter()
+        dirs, sizes = {}, {}
+        for eid, cfg in (("upscaler-x4", du.X4_CONFIG),
+                         ("upscaler-x2", du.X2_CONFIG)):
+            ms = random_modelset(cfg, seed=0, dtype=torch.bfloat16,
+                                 device="cuda", engine_id=eid)
+            dirs[eid] = os.path.join(tmp, eid)
+            load.save_modelset(ms, dirs[eid])
+            sizes[eid] = _engine_bytes(ms)
+            del ms
+        face = cf.random_codeformer(cf.CODEFORMER, 0, "cuda")
+        dirs["codeformer"] = os.path.join(tmp, "codeformer.safetensors")
+        load.write_safetensors(dirs["codeformer"], {
+            k: torch.from_numpy(v).to(torch.bfloat16)
+            for k, v in cf.state_dict_codeformer(face).items()})
+        sizes["codeformer"] = sum(p.numel() for p in face.parameters())
+        del face
+        emit({"phase": "diffusion_upscalers",
+              "checkpoints_s": time.perf_counter() - t0,
+              "bytes": {k: v for k, v in sizes.items()}})
+        entries = {
+            "upscaler-x4": {"id": "upscaler-x4", "task": "upscaler",
+                            "kind": "sd-x4", "model": dirs["upscaler-x4"],
+                            "steps": X4_STEPS, "noise_level": 20},
+            "upscaler-x2": {"id": "upscaler-x2", "task": "upscaler",
+                            "kind": "sd-x2", "model": dirs["upscaler-x2"],
+                            "steps": X2_STEPS},
+            "codeformer": {"id": "codeformer", "task": "face_restore",
+                           "model": dirs["codeformer"], "fidelity": 0.5}}
+        manager, serving, tmp2 = _serve_yaml(
+            "- {id: sd15, default: true, model: {preset: sd15, seed: 0}}\n"
+            "- {id: sd15-tome, model: {preset: sd15, seed: 0}, "
+            f"options: {{tome_ratio: {TOME_RATIO}}}}}\n" +
+            "".join(f"- {json.dumps(e)}\n" for e in entries.values()))
+        shutil.rmtree(tmp2, ignore_errors=True)
+        runs = {}
+        for eid, e in entries.items():
+            t0 = time.perf_counter()
+            runs[eid] = manager.task_pipeline(e["task"], eid)
+            torch.cuda.synchronize()
+            emit({"phase": "diffusion_upscalers", "engine": eid,
+                  "load_s": time.perf_counter() - t0,
+                  "weight_bytes": sizes[eid]})
+        status = {s["id"]: (s["ready"], s["weights"])
+                  for s in manager.status()}
+        emit({"phase": "diffusion_upscalers", "status": status})
+        for eid in entries:
+            if status[eid] != (True, "real"):
+                failed.append(f"{eid}: status {status[eid]}")
+
+        def measure(name, fn, out_shape, expect, extra=None):
+            """Warm-up, then launches (against ``expect``), peak memory and
+            the median wall of 3 of fn()."""
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            _build.reset_launches()
+            out = fn()
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in _build.launches.items() if v}
+            peak = torch.cuda.max_memory_allocated()
+            wall = _median_wall(fn, 3)[0]
+            line = {"phase": "diffusion_upscalers", "run": name,
+                    "wall_s": wall, "peak_bytes": peak,
+                    "peak_over_weights_bytes": peak - base,
+                    "launches": launches, "expected_launches": expect,
+                    "shape": list(out.shape),
+                    "finite": bool(out.isfinite().all()),
+                    "min": float(out.min()), "max": float(out.max()),
+                    "std": float(out.float().std()), **(extra or {})}
+            emit(line)
+            failed.extend(f"{name}: {what}" for what, bad in (
+                (f"launches {launches} != {expect}", launches != expect),
+                (f"shape {line['shape']}", line["shape"] != out_shape),
+                ("not finite", not line["finite"]),
+                ("out of [0, 1]", line["min"] < 0 or line["max"] > 1),
+                ("a flat image", line["std"] < 1e-3)) if bad)
+            return out
+
+        # --- each engine on the card: the x4 at X4_SIZE², the x2 at
+        # X2_SIZE², CodeFormer at 512² and at FACE_OTHER_SIZE
+        x4_in = torch.from_numpy(_scene(X4_SIZE, X4_SIZE)).cuda()
+        x2_in = torch.from_numpy(_scene(X2_SIZE, X2_SIZE)).cuda()
+        fh, fw = FACE_OTHER_SIZE
+        fs = cf.CODEFORMER.img_size
+        face_sq = torch.from_numpy(_scene(fs, fs)).cuda()
+        face_other = torch.from_numpy(_scene(fh, fw)).cuda()
+        measure("upscaler_x4", lambda: runs["upscaler-x4"](x4_in),
+                [1, 4 * X4_SIZE, 4 * X4_SIZE, 3],
+                paths_expect["upscaler_x4"], {"steps": X4_STEPS})
+        measure("upscaler_x2", lambda: runs["upscaler-x2"](x2_in),
+                [1, 2 * X2_SIZE, 2 * X2_SIZE, 3],
+                paths_expect["upscaler_x2"], {"steps": X2_STEPS})
+        measure(f"codeformer_{fs}", lambda: runs["codeformer"](face_sq),
+                [1, fs, fs, 3], {})
+        measure("codeformer_other", lambda: runs["codeformer"](face_other),
+                [1, fh, fw, 3], {}, {"resized_from": [fh, fw]})
+
+        # --- the card's models against the same weights in f32 on the CPU
+        for eid in ("upscaler-x4", "upscaler-x2"):
+            _diffusion_vs_cpu(eid, entries[eid], runs[eid].upscaler, failed)
+        face = runs["codeformer"].models[0]
+        cpu_face = cf.load_codeformer(load.read_state_dict(
+            dirs["codeformer"]), device="cpu")
+        idx, card = _face_indices(face, face_sq)
+        idx_ref, ref = _face_indices(cpu_face, face_sq.cpu())
+        share = float((idx.cpu() == idx_ref).float().mean())
+        diff = (card.cpu() - ref).abs()
+        emit({"phase": "diffusion_upscalers", "card_vs_cpu_f32":
+              "codeformer", "size": fs, "index_share": share,
+              "index_share_bound": FACE_INDEX_SHARE,
+              "max_abs_diff": float(diff.max()),
+              "mean_abs_diff": float(diff.mean()),
+              "mean_bound": FACE_F32_MEAN_BOUND})
+        if share < FACE_INDEX_SHARE or \
+                not float(diff.mean()) <= FACE_F32_MEAN_BOUND:
+            failed.append(f"codeformer vs CPU: index share {share}, mean "
+                          f"diff {float(diff.mean())}")
+        del cpu_face
+
+        # --- ToMe on SD1.5: the phase-4 request on an engine whose
+        # options hold tome_ratio, against the same weights without it
+        req = dict(REQUEST, seeds=[71], output_dtype="uint8")
+        tome_pipe = manager.dispatch_view("sd15-tome").pipe
+        plain_pipe = manager.dispatch_view("sd15").pipe
+
+        def tome_run(**kw):
+            return tome_pipe(tome_ratio=TOME_RATIO, **req, **kw)
+
+        size = REQUEST["height"]
+        tome_img = measure("sd15_tome", lambda: tome_run().float() / 255,
+                           [1, size, size, 3], paths_expect["sd15_tome"],
+                           {"tome_ratio": TOME_RATIO})
+        plain_wall, plain_img = _median_wall(lambda: plain_pipe(**req), 3)
+        chunked = tome_run(chunk_steps=10, stop_event=threading.Event())
+        tome_u8 = tome_run()
+        tome_diff = int((tome_u8.int() - plain_img.int()).abs().max())
+        emit({"phase": "diffusion_upscalers", "check": "tome",
+              "plain_wall_s": plain_wall,
+              "max_diff_vs_unmerged": tome_diff,
+              "chunked_equal": bool(torch.equal(chunked, tome_u8)),
+              "merged_tokens": sorted({a[2] for a in calls["tome_unet"][0]
+                                       if a[3] != 77})})
+        if tome_diff == 0:
+            failed.append("ToMe: the image of the unmerged engine")
+        if not torch.equal(chunked, tome_u8):
+            failed.append("ToMe: the 10-step-chunked run differs")
+        del tome_img, chunked
+
+        # --- over gRPC: client.py's requests to each engine and to the
+        # ToMe engine, each against the same work in-process
+        ns = _client_builders()
+        channel, generate = _grpc_generate(serving.grpc_port)
+        pngs = {}
+        for name, img in (("x4", x4_in), ("x2", x2_in),
+                          ("face", face_other)):
+            pngs[name] = os.path.join(tmp, f"{name}.png")
+            with open(pngs[name], "wb") as f:
+                f.write(I.encode_png(img[0].cpu().numpy()))
+        argv = [REQUEST["prompt"], "-n", REQUEST["negative_prompt"],
+                "--host", "localhost:1", "--steps", str(STEPS),
+                "-s", "k_dpmpp_2m", "-S", "71"]
+        cases = {"upscaler-x4": (["-e", "upscaler-x4", "-i", pngs["x4"]],
+                                 paths_expect["upscaler_x4"]),
+                 "upscaler-x2": (["-e", "upscaler-x2", "-i", pngs["x2"]],
+                                 paths_expect["upscaler_x2"]),
+                 "codeformer": (["-e", "codeformer", "-i", pngs["face"]],
+                                {}),
+                 "sd15-tome": (["-e", "sd15-tome", "-W", str(size), "-H",
+                                str(size)], paths_expect["sd15_tome"])}
+        diffs = {}
+        for name, (a, expect) in cases.items():
+            req_pb = _client_request(ns, argv + a)
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            got = generate(req_pb)
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in _build.launches.items() if v}
+            emit({"phase": "diffusion_upscalers", "grpc": name,
+                  "wall_s": wall, "shape": list(got.shape),
+                  "launches": launches, "expected_launches": expect})
+            if launches != expect:
+                failed.append(f"gRPC {name}: launches {launches} != "
+                              f"{expect}")
+            if name == "sd15-tome":
+                want = tome_u8[0].cpu().numpy().astype(int)
+                diffs[name] = int(np.abs(got.astype(int) - want).max()) \
+                    if got.shape == want.shape else 999
+                continue
+            img = {"upscaler-x4": x4_in, "upscaler-x2": x2_in,
+                   "codeformer": face_other}[name]
+            want = runs[name](img).clamp(0, 1)[0].cpu().numpy()
+            diffs[name] = float(np.abs(got / 255.0 - want).max()) \
+                if got.shape == want.shape else float("inf")
+        emit({"phase": "diffusion_upscalers",
+              "check": "grpc_equals_in_process", "max_diff": diffs})
+        for name, d in diffs.items():
+            if d > (1 if name == "sd15-tome" else 1.0 / 255 + 1e-6):
+                failed.append(f"gRPC {name}: {d} off the in-process image")
+        listed = channel.unary_unary(
+            "/gooseai.EnginesService/ListEngines",
+            request_serializer=epb.ListEnginesRequest.SerializeToString,
+            response_deserializer=epb.Engines.FromString)(
+                epb.ListEnginesRequest(task_group=epb.UPSCALE),
+                timeout=60).engine
+        ready = {e.id: e.ready for e in listed}
+        emit({"phase": "diffusion_upscalers", "list_upscalers": ready})
+        if ready != {"upscaler-x4": True, "upscaler-x2": True}:
+            failed.append(f"ListEngines UPSCALE: {ready}")
+    except grpc.RpcError as e:
+        failed.append(f"gRPC: {e.code()} {e.details()}")
+    finally:
+        if channel is not None:
+            channel.close()
+        if serving is not None:
+            serving.stop(0)
+        if manager is not None:
+            manager.dispatcher.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    emit({"phase": "diffusion_upscalers",
+          "phase_s": time.perf_counter() - t_phase})
+    if failed:
+        raise AssertionError("diffusion upscalers: " + "; ".join(failed))
 
 
 # ------------------------------------------------------------- SD2, SDXL
@@ -4309,8 +4774,8 @@ def main() -> int:
     # dropped EngineManager frees its engines at once; the collection guards
     # against a cycle that would keep one)
     for phase in (phase_samplers, phase_modes, phase_adapters, phase_hints,
-                  phase_adjust, phase_hinters, phase_upscalers, phase_sd2,
-                  phase_sdxl,
+                  phase_adjust, phase_hinters, phase_upscalers,
+                  phase_diffusion_upscalers, phase_sd2, phase_sdxl,
                   phase_serve, phase_http, phase_weights):
         phase()
         gc.collect()
@@ -4333,13 +4798,15 @@ def main() -> int:
                 "bound_by": max(by, key=by.get)}
 
     rows, mode_rows, cn_rows, c5_rows, adj_rows = [], [], [], [], []
-    hint_rows = []
+    hint_rows, up_rows = [], []
     for name, source, replaces in KERNEL_TABLE:
         rs = [r for r in kernels[name] if not r.get("modes") and
               not r.get("controlnet") and not r.get("c5") and
-              not r.get("adjust") and not r.get("hinter")]
+              not r.get("adjust") and not r.get("hinter") and
+              not r.get("upscaler")]
         adj_rs = [r for r in kernels[name] if r.get("adjust")]
         hint_rs = [r for r in kernels[name] if r.get("hinter")]
+        up_rs = [r for r in kernels[name] if r.get("upscaler")]
         mode_rs = [r for r in kernels[name] if r.get("modes")]
         cn_rs = [r for r in kernels[name] if r.get("controlnet")]
         c5_rs = [r for r in kernels[name] if r.get("c5")]
@@ -4362,13 +4829,19 @@ def main() -> int:
         if hint_rs:                 # K1 only: no hinter runs K2
             hint_rows.append({"name": name, "shapes": len(hint_rs),
                               **summary(hint_rs)})
+        up_rows.append({"name": name, "shapes": len(up_rs),
+                        **summary(up_rs)})
     emit({"mode_shapes": mode_rows})
     emit({"controlnet_shapes": cn_rows})
     emit({"c5_shapes": c5_rows})
     emit({"adjust_shapes": adj_rows})
     emit({"hinter_shapes": hint_rows})
+    emit({"upscaler_shapes": up_rows})
     emit({"c5_paths": {name: _path_sums(kernels, parts)
                        for name, parts in _c5_paths().items()}})
+    up_calls = _upscaler_calls()
+    emit({"upscaler_paths": {name: _path_sums(kernels, parts, up_calls)
+                             for name, parts in _upscaler_paths().items()}})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -42,12 +42,13 @@ each in the manager's compute dtype (its head in f32), from the engine's
 ``model:`` checkpoint (``spec_state_dict``) or, with no resolvable
 weights, random at ``DPT_TEST`` as in the JAX package; so are the
 hinters (edges, line art, pose, segmentation, normals, lines), background
-removal (InSPyReNet) and the image-space upscalers (Real-ESRGAN, SwinIR,
-HAT behind pipeline/upscaler.py's tiles). Not ported, and raising
-NotImplementedError with the ROADMAP item when an engine or request needs
-them: the diffusion upscalers (``kind: sd-x4`` / ``sd-x2``) and face
-restoration (D4b), the CLIP model for guidance (C6), and the upscalers'
-class and scale-shift time conditioning of a UNet (D4b).
+removal (InSPyReNet), the image-space upscalers (Real-ESRGAN, SwinIR,
+HAT behind pipeline/upscaler.py's tiles) and face restoration
+(CodeFormer, in f32). The diffusion upscalers (``kind: sd-x4`` and
+``sd-x2``, pipeline/diffusion_upscaler.py) build a ModelSet of their own
+as a generate engine would, from ``model:`` or their preset. The CLIP
+vision tower and its users (the safety checker, CLIP guidance) wait for
+ROADMAP C6 and C7.
 """
 
 from __future__ import annotations
@@ -107,11 +108,6 @@ class EngineSpec:
 
 class EngineNotFoundError(KeyError):
     pass
-
-
-def _unported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to gyre_tpu_torch yet (ROADMAP {item})")
 
 
 class DispatchView:
@@ -212,8 +208,8 @@ class EngineManager:
 
     def _build_modelset(self, spec: EngineSpec) -> ModelSet:
         if spec.task != "generate":
-            _unported(f"engine {spec.id}: a ModelSet of task {spec.task!r}",
-                      "D")
+            raise ValueError(f"engine {spec.id} is a {spec.task} engine: "
+                             "it has no generate ModelSet")
         model = spec.model
         if isinstance(model, dict) and model.get("mix"):
             # model mixing: merge other engines' weights (reference
@@ -478,7 +474,7 @@ class EngineManager:
         if spec.task == "upscaler":
             return self._build_upscaler(spec)
         if spec.task in ("face_restore", "codeformer"):
-            _unported(f"engine {spec.id}: task {spec.task!r}", "D4b")
+            return self._build_face_restore(spec)
         return None
 
     # the upscaler kinds that are latent diffusion pipelines
@@ -495,12 +491,12 @@ class EngineManager:
         (its architecture derived from the shapes), else random at
         ``HAT_TEST`` / ``SWINIR_TEST`` / ``blocks`` as in the JAX package;
         a checkpoint that resolves and does not load raises. The diffusion
-        upscalers (``sd-x4``, ``sd-x2``) raise naming ROADMAP D4b."""
+        upscalers: ``_build_diffusion_upscaler``."""
         from ..pipeline.upscaler import UpscalerPipeline, build_esrgan_pipeline
 
         kind = spec.params.get("kind")
         if kind in self._DIFFUSION_UPSCALERS:
-            _unported(f"engine {spec.id}: upscaler kind {kind!r}", "D4b")
+            return self._build_diffusion_upscaler(spec, kind)
         state = self.spec_state_dict(spec)
         if kind in ("hat", "swinir"):
             from ..models import hat, swinir
@@ -521,6 +517,61 @@ class EngineManager:
             state_dict=state, num_blocks=int(spec.params.get("blocks", 23)),
             tile=int(spec.params.get("tile", 128)), dtype=self.compute_dtype,
             device=self.device)
+
+    def _build_diffusion_upscaler(self, spec: EngineSpec, kind: str):
+        """A latent diffusion upscaler engine, in the manager's dtype: the
+        sd-x2 latent upscaler (``sd-x2``/``latent-x2``/``x2``: ``steps``
+        30 of k_euler, 2x) or the SD x4 upscaler (``sd-x4``/``diffusion``/
+        ``latent``: ``steps`` 20 of DPM++ 2M at ``noise_level`` 20, 4x).
+        Its ModelSet is built as a generate engine's from ``model:``,
+        else the preset ``upscaler-x2`` / ``upscaler-x4``. A request runs
+        the engine with no prompt and seed 0, as in the JAX package."""
+        from ..pipeline import diffusion_upscaler as du
+
+        x2 = kind in ("sd-x2", "latent-x2", "x2")
+        cls = du.LatentUpscalerX2 if x2 else du.DiffusionUpscaler
+        ms = self._build_modelset(EngineSpec(
+            id=spec.id, model=spec.model or f"preset/{cls.PRESET}",
+            task="generate"))
+        up = cls(ms, compute_dtype=self.compute_dtype)
+        steps = int(spec.params.get("steps", 30 if x2 else 20))
+        if x2:
+            run = lambda img: up(img, steps=steps)  # noqa: E731
+        else:
+            level = int(spec.params.get("noise_level", 20))
+            run = lambda img: up(img, steps=steps,  # noqa: E731
+                                 noise_level=level)
+        run.upscaler = up
+        return run
+
+    def _build_face_restore(self, spec: EngineSpec):
+        """A face-restore engine: CodeFormer in f32 from the engine's
+        checkpoint (its architecture from the shapes), else random at
+        ``CODEFORMER_TEST`` as in the JAX package, at ``fidelity`` (0.5);
+        an image of another size than the model's is resized to it and
+        back (bilinear, antialiased, as jax.image.resize), the result
+        clamped to [0, 1] (the resize's f32 weights may overshoot by an
+        ulp; the JAX engine does not clamp)."""
+        from ..models import codeformer as cf
+        from ..ops.resize import resize
+
+        state = self.spec_state_dict(spec)
+        model = cf.load_codeformer(state, self.device) if state is not None \
+            else cf.random_codeformer(cf.CODEFORMER_TEST, 0, self.device)
+        fidelity = float(spec.params.get("fidelity", 0.5))
+        s = model.cfg.img_size
+
+        @torch.inference_mode()
+        def run(img):
+            img = torch.as_tensor(img).to(self.device, torch.float32)
+            h, w = img.shape[1:3]
+            if (h, w) == (s, s):
+                return model(img, fidelity)
+            out = model(resize(img, (s, s), "bilinear"), fidelity)
+            return resize(out, (h, w), "bilinear").clamp(0.0, 1.0)
+
+        run.models = (model,)
+        return run
 
     # the hinter kinds a task engine's ``kind:`` (else its task) names
     _BG_KINDS = ("background_removal", "bg", "inspyrenet")
@@ -882,23 +933,19 @@ class EngineManager:
 
     def engine_ready(self, spec) -> bool:
         """Ready when the port has a path for it: a generate engine of any
-        family (SD1.x, SD2, SDXL and its refiner: a UNet with class or
-        scale-shift conditioning does not build) once its weights are
+        family (SD1.x, SD2, SDXL and its refiner) once its weights are
         resident, its UNet taking 4 input channels (txt2img and every
         mode), 9 (inpainting) or 5 (depth2img); a hinter engine (depth,
         edge, line art, pose, segmentation, normals, lines, background
-        removal) or an image-space upscaler (ESRGAN, SwinIR, HAT), which
-        loads at first use, once the engines have loaded, as in the JAX
-        package. The diffusion upscalers and face restoration (ROADMAP
-        D4b) are not ready, since each of their requests would answer
-        UNIMPLEMENTED."""
+        removal), an upscaler (ESRGAN, SwinIR, HAT, the sd-x4 and sd-x2
+        diffusion upscalers) or a face-restore engine, which loads at
+        first use, once the engines have loaded, as in the JAX package."""
         if spec.task in ("depth", "edge", "hinter", "pose", "segmentation",
                          "normal", "background_removal"):
             return self._loaded and (spec.params.get("kind") or spec.task) \
                 in self._HINTER_KINDS + self._BG_KINDS
-        if spec.task == "upscaler":
-            return self._loaded and spec.params.get("kind") not in \
-                self._DIFFUSION_UPSCALERS
+        if spec.task in ("upscaler", "face_restore", "codeformer"):
+            return self._loaded
         ms = self._modelsets.get(spec.id)
         if spec.task != "generate" or ms is None:
             return False

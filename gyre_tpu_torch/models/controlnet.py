@@ -19,8 +19,7 @@ import torch
 
 from . import layers as L
 from .configs import UNetConfig
-from .unet import _check_config, _resnet, _resnet_specs, _transformer, \
-    _transformer_specs
+from .unet import _resnet, _resnet_specs, _transformer, _transformer_specs
 
 Params = dict
 
@@ -31,7 +30,6 @@ HINT_CHANNELS = 3
 
 
 def param_specs(cfg: UNetConfig) -> Params:
-    _check_config(cfg)
     ch0 = cfg.block_out_channels[0]
     ted = cfg.time_embed_dim
     ce = {"conv_in": L.conv_spec(3, 3, HINT_CHANNELS, COND_CHANNELS[0]),

@@ -171,14 +171,15 @@ class Spec:
     "conv_hwio" HWIO | "bias" (zeros) | "norm_scale" (ones) | "normal"
     (embeddings, N(0, std^2)). f32: the leaf is kept in float32 whatever
     the model's dtype, holding that dtype's value cast up (the fused
-    kernels read these leaves as f32, so no call casts them)."""
+    kernels read these leaves as f32, so no call casts them); with exact,
+    it holds its f32 value itself (the k-UNet's Fourier frequencies)."""
 
-    __slots__ = ("kind", "shape", "std", "f32")
+    __slots__ = ("kind", "shape", "std", "f32", "exact")
 
     def __init__(self, kind: str, shape: tuple, std: float = 0.0,
-                 f32: bool = False):
+                 f32: bool = False, exact: bool = False):
         self.kind, self.shape, self.std = kind, tuple(shape), std
-        self.f32 = f32
+        self.f32, self.exact = f32 or exact, exact
 
     def fan_in(self) -> int:
         if self.kind == "linear":

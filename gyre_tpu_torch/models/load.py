@@ -19,12 +19,13 @@ keys with or without ``text_model.``, ``*.fp16.safetensors`` files.
 Safetensors files are memory-mapped and each leaf goes to the engine's
 device before it is cast, so no host copy of the model is made. The
 ControlNet loader (and its exporter) walks the ControlNet's spec tree the
-same way; the T2I adapter's is in models/t2i_adapter.py. The loaders of
-other model kinds wait for their consumers and raise.
+same way; the T2I adapter's is in models/t2i_adapter.py. The CLIP vision
+loaders wait for their consumers (ROADMAP C6) and raise.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 
@@ -34,12 +35,16 @@ from ..pipeline import schedule as sched
 from ..pipeline.tokenizer import load_tokenizer
 from . import configs
 from .configs import ModelSetConfig
+# the sd-x2 latent upscaler's k-UNet: its own strict loader, the config
+# from the shapes
+from .kunet import load_kunet as load_kunet_params
 from .modelset import ModelSet, convert_tree, map_specs, model_specs
 
 _LEAF = {"w": "weight", "b": "bias", "scale": "weight", "bias": "bias"}
 _TOP = {"conv_in": "conv_in", "norm_out": "conv_norm_out",
         "conv_out": "conv_out"}
-_EMBED = {"time_embed": "time_embedding", "add_embed": "add_embedding"}
+_EMBED = {"time_embed": "time_embedding", "add_embed": "add_embedding",
+          "class_embed": "class_embedding"}
 _MID = {"res1": "resnets.0", "res2": "resnets.1", "attn": "attentions.0"}
 _RESNET = {"norm1": "norm1", "conv1": "conv1", "norm2": "norm2",
            "conv2": "conv2", "time_emb": "time_emb_proj",
@@ -214,10 +219,6 @@ def load_clip_model_params(*_, **__):
     _not_ported("CLIP model", "C6")
 
 
-def load_kunet_params(*_, **__):
-    _not_ported("k-upscaler UNet", "D4b")
-
-
 # ------------------------------------------------------------------ files
 
 
@@ -293,16 +294,21 @@ def derive_modelset_config(path: str,
     """The architecture from the checkpoint's own config.json files; the
     preset fills what they cannot carry (clip_layer) and stands in where a
     checkpoint has none."""
-    import dataclasses
-
     cfg = fallback
     uc = _read_json(os.path.join(path, "unet", "config.json"))
     if uc and ("KDownBlock2D" in (uc.get("down_block_types") or []) or
                uc.get("time_embedding_type") == "fourier"):
-        load_kunet_params()
-    if uc:
+        # the k-upscaler UNet: load_modelset derives its dimensions from
+        # the weights' shapes (models/kunet.py)
         cfg = dataclasses.replace(
-            cfg, unet=configs.unet_config_from_diffusers(uc, fallback.unet),
+            cfg, sample_size=int(uc.get("sample_size",
+                                        fallback.sample_size)))
+    elif uc:
+        ucfg = configs.unet_config_from_diffusers(uc, fallback.unet)
+        if uc.get("resnet_time_scale_shift") == "scale_shift":
+            ucfg = dataclasses.replace(ucfg, time_scale_shift=True)
+        cfg = dataclasses.replace(
+            cfg, unet=ucfg,
             sample_size=int(uc.get("sample_size", fallback.sample_size)))
     vc = _read_json(os.path.join(path, "vae", "config.json"))
     if vc:
@@ -352,9 +358,15 @@ def load_modelset(path: str, cfg: ModelSetConfig, dtype=torch.bfloat16,
     unet_state = read_safetensors(unet_file)
     if "time_proj.weight" in unet_state and \
             not any(k.startswith("mid_block.") for k in unet_state):
-        load_kunet_params()                      # k-upscaler layout
-    unet_s, vae_s, text_s = model_specs(cfg)
-    unet_p = load_tree(unet_s, unet_state, unet_keys, "unet", dtype, device)
+        # the k-upscaler layout (sd-x2-latent-upscaler): its strict loader,
+        # its config from the shapes
+        unet_p, kcfg = load_kunet_params(unet_state, dtype, device)
+        cfg = dataclasses.replace(cfg, unet=kcfg)
+        _, vae_s, text_s = model_specs(cfg)
+    else:
+        unet_s, vae_s, text_s = model_specs(cfg)
+        unet_p = load_tree(unet_s, unet_state, unet_keys, "unet", dtype,
+                           device)
     vae_p = load_tree(vae_s, read_safetensors(vae_file), vae_keys, "vae",
                       dtype, device)
     text_p = [load_tree(s, read_safetensors(f), clip_keys, _text_dir(i),
@@ -367,15 +379,43 @@ def load_modelset(path: str, cfg: ModelSetConfig, dtype=torch.bfloat16,
                     device=device, id=engine_id)
 
 
+def _kunet_config_to_diffusers(cfg, sample_size: int) -> dict:
+    """A k-upscaler UNet's config.json, as the published sd-x2 latent
+    upscaler's names it (its dimensions are read from the weights)."""
+    down = ["KCrossAttnDownBlock2D" if a else "KDownBlock2D"
+            for a in cfg.attn_levels]
+    up = ["KCrossAttnUpBlock2D" if a else "KUpBlock2D"
+          for a in reversed(cfg.attn_levels)]
+    return {"_class_name": "UNet2DConditionModel",
+            "in_channels": cfg.in_channels,
+            "out_channels": cfg.out_channels, "sample_size": sample_size,
+            "block_out_channels": list(cfg.block_out_channels),
+            "layers_per_block": cfg.layers_per_block,
+            "down_block_types": down, "up_block_types": up,
+            "mid_block_type": None, "time_embedding_type": "fourier",
+            "cross_attention_dim": cfg.cross_attention_dim,
+            "attention_head_dim": cfg.head_dim,
+            "only_cross_attention": [not s for s in cfg.self_attn_levels]}
+
+
 def save_modelset(ms: ModelSet, path: str):
     """Export a ModelSet as a diffusers-layout safetensors directory (f32)
     with each part's config.json, the tokenizer and the scheduler config,
     as the JAX package writes it."""
+    from . import kunet
+
     cfg = ms.config
     unet_s, vae_s, text_s = model_specs(cfg)
+    if isinstance(cfg.unet, kunet.KUNetConfig):
+        unet_part = (unet_s, kunet.state_keys,
+                     _kunet_config_to_diffusers(cfg.unet, cfg.sample_size))
+    else:
+        ucfg = configs.unet_config_to_diffusers(cfg.unet, cfg.sample_size)
+        if cfg.unet.time_scale_shift:
+            ucfg["resnet_time_scale_shift"] = "scale_shift"
+        unet_part = (unet_s, unet_keys, ucfg)
     parts = [("unet", "diffusion_pytorch_model.safetensors", ms.unet_params,
-              unet_s, unet_keys,
-              configs.unet_config_to_diffusers(cfg.unet, cfg.sample_size)),
+              *unet_part),
              ("vae", "diffusion_pytorch_model.safetensors", ms.vae_params,
               vae_s, vae_keys, configs.vae_config_to_diffusers(cfg.vae))]
     index = {"_class_name": "StableDiffusionPipeline",

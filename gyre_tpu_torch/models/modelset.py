@@ -13,6 +13,10 @@ Counterpart of gyre_tpu/models/modelset.py. Three ways to fill one:
     the JAX trees that the port does not consume raises.
   * ``models/load.py``: a diffusers-layout checkpoint read from disk.
 
+The denoiser is the SD UNet (models/unet.py), or the sd-x2 latent
+upscaler's k-UNet (models/kunet.py) when the config's ``unet`` is a
+KUNetConfig.
+
 The bridge and the loader walk the port's spec tree through one strict
 converter, ``convert_tree``: a missing or misshapen leaf raises with its
 path. All three make every leaf in the given dtype; the leaves the fused
@@ -33,6 +37,7 @@ from ..pipeline import schedule as sched
 from ..pipeline.tokenizer import FallbackTokenizer
 from . import configs
 from . import clip as clip_mod
+from . import kunet as kunet_mod
 from . import layers as L
 from . import unet as unet_mod
 from . import vae as vae_mod
@@ -74,24 +79,33 @@ def map_specs(fn, tree, path=()):
     return fn(path, tree)
 
 
+def unet_specs(ucfg):
+    """The denoiser's spec tree: the SD UNet's, or the sd-x2 latent
+    upscaler's k-UNet's (models/kunet.py) for a KUNetConfig."""
+    if isinstance(ucfg, kunet_mod.KUNetConfig):
+        return kunet_mod.param_specs(ucfg)
+    return unet_mod.param_specs(ucfg)
+
+
 def model_specs(cfg: configs.ModelSetConfig):
     """(unet, vae, [text tower, ...]) spec trees of a config."""
-    return (unet_mod.param_specs(cfg.unet), vae_mod.param_specs(cfg.vae),
+    return (unet_specs(cfg.unet), vae_mod.param_specs(cfg.vae),
             [clip_mod.param_specs(te) for te in cfg.text_encoders])
 
 
 def _random_tree(specs, gen, dtype, device):
     def make(s: L.Spec):
+        dt = torch.float32 if s.exact else dtype
         if s.kind == "bias":
-            return torch.zeros(s.shape, dtype=dtype, device=device)
+            return torch.zeros(s.shape, dtype=dt, device=device)
         if s.kind == "norm_scale":
-            return torch.ones(s.shape, dtype=dtype, device=device)
+            return torch.ones(s.shape, dtype=dt, device=device)
         if s.kind == "normal":
             t = torch.randn(s.shape, generator=gen, device=device) * s.std
-            return t.to(dtype)
+            return t.to(dt)
         bound = s.fan_in() ** -0.5
         t = torch.rand(s.shape, generator=gen, device=device)
-        return ((t * 2.0 - 1.0) * bound).to(dtype)
+        return ((t * 2.0 - 1.0) * bound).to(dt)
 
     return map_specs(lambda _, s: _as_spec_dtype(make(s), s), specs)
 
@@ -179,8 +193,10 @@ def convert_tree(specs, fetch, name: str, dtype, device):
             raise ValueError(f"{name}: leaf {where} has shape "
                              f"{tuple(t.shape)} in the port's layout, the "
                              f"port expects {s.shape}")
-        # a copy on the device, made in dtype there
-        t = t.to(device, copy=True).to(dtype).contiguous()
+        # a copy on the device, made in dtype there (an exact f32 leaf in
+        # f32)
+        t = t.to(device, copy=True)
+        t = t.to(torch.float32 if s.exact else dtype).contiguous()
         return _as_spec_dtype(t, s)
 
     return map_specs(take, specs)
@@ -192,7 +208,7 @@ def round_f32_leaves(tree, specs, dtype):
     e.g. a model mix)."""
     def fix(path, s: L.Spec):
         t = _get(tree, path)
-        return t.to(dtype).float() if s.f32 else t
+        return t.to(dtype).float() if s.f32 and not s.exact else t
 
     return map_specs(fix, specs)
 
@@ -254,7 +270,9 @@ def t2i_adapter_from_jax(params, *, dtype=torch.float32, device="cuda"):
 def from_jax_params(unet_params, vae_params, text_params,
                     config: configs.ModelSetConfig, *, dtype=torch.float32,
                     device="cuda", engine_id: str = "from_jax") -> ModelSet:
-    """The JAX package's params trees (numpy or array-likes) -> ModelSet."""
+    """The JAX package's params trees (numpy or array-likes) -> ModelSet;
+    the denoiser is a k-UNet's tree when ``config.unet`` is a
+    KUNetConfig."""
     device = torch.device(device)
     unet_s, vae_s, text_s = model_specs(config)
     if len(text_params) != len(text_s):
@@ -470,3 +488,13 @@ def inspyrenet_from_jax(params, cfg, *, dtype=torch.float32, device="cuda"):
     return _module_from_jax(inspyrenet.InSPyReNet(cfg, depth), params,
                             "inspyrenet").to_compute(dtype,
                                                      torch.device(device))
+
+
+def codeformer_from_jax(params, cfg, *, device="cuda"):
+    """The JAX package's CodeFormer params at ``cfg`` -> the port's
+    CodeFormer in f32, as strict as from_jax_params."""
+    from . import codeformer
+
+    with torch.device(device):
+        model = codeformer.CodeFormer(cfg)
+    return _module_from_jax(model, params, "codeformer").eval()

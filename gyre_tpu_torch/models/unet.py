@@ -9,19 +9,26 @@ the JAX package, and only the attentions run a kernel.
 
 The UNetConfig picks the family: 1x1-conv or linear (SD2, SDXL)
 ``proj_in``/``proj_out``, levels without attention and the transformer
-depth and heads of each level (SDXL), and SDXL's "text_time"
-conditioning (``added_cond``: the pooled text and the size/crop time ids,
-through ``add_embed`` into the time embedding). Not ported yet, and
-raising when asked for: the upscalers' class and scale-shift time
-conditioning (ROADMAP D4b) and token merging. ControlNet residuals
+depth and heads of each level (SDXL), SDXL's "text_time" conditioning
+(``added_cond``: the pooled text and the size/crop time ids, through
+``add_embed`` into the time embedding), the x4 upscaler's class
+conditioning (``class_embed``: the noise level's sinusoid through
+lin1 -> SiLU -> lin2, added to the time embedding) and diffusers'
+"scale_shift" time conditioning (``time_scale_shift``: each resnet's time
+projection is 2 * C_out wide and modulates its second GroupNorm, FiLM
+style; that resnet's second conv then runs plain, as in the JAX package,
+while its first stays on K2a + K2b). ControlNet residuals
 (``down_residuals``, ``mid_residual``) and T2I-adapter features
-(``adapter_states``) are added as in the JAX package.
+(``adapter_states``) are added as in the JAX package, and ``tome_ratio``
+merges the self-attentions' tokens (ops/tome.py; the merged attention is
+still K1's).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..ops import tome
 from . import layers as L
 from .configs import UNetConfig
 
@@ -29,26 +36,17 @@ Params = dict
 _EPS = 1e-5
 
 
-def _check_config(cfg: UNetConfig):
-    unported = [name for name, on in (
-        ("class_embed", cfg.class_embed),
-        ("time_scale_shift", cfg.time_scale_shift)) if on]
-    if unported:
-        raise NotImplementedError(
-            f"UNet config features of the upscalers not ported to "
-            f"gyre_tpu_torch yet (ROADMAP D4b): {unported}")
-
-
 # ------------------------------------------------------------ param specs
 
 
-def _resnet_specs(c_in, c_out, temb_dim):
+def _resnet_specs(c_in, c_out, temb_dim, scale_shift=False):
     p = {
         "norm1": L.fused_norm_spec(c_in),
         "conv1": L.fused_conv_spec(c_in, c_out),
         "norm2": L.fused_norm_spec(c_out),
         "conv2": L.fused_conv_spec(c_out, c_out),
-        "time_emb": L.linear_spec(temb_dim, c_out),
+        "time_emb": L.linear_spec(temb_dim,
+                                  c_out * (2 if scale_shift else 1)),
     }
     if c_in != c_out:
         p["shortcut"] = L.conv_spec(1, 1, c_in, c_out)
@@ -82,7 +80,6 @@ def _transformer_specs(dim, ctx_dim, n_layers, linear_proj):
 
 
 def param_specs(cfg: UNetConfig) -> Params:
-    _check_config(cfg)
     ch0 = cfg.block_out_channels[0]
     ted = cfg.time_embed_dim
     p: Params = {
@@ -97,13 +94,17 @@ def param_specs(cfg: UNetConfig) -> Params:
             cfg.addition_time_dim * cfg.addition_time_ids
         p["add_embed"] = {"lin1": L.linear_spec(add_in, ted),
                           "lin2": L.linear_spec(ted, ted)}
+    if cfg.class_embed:
+        p["class_embed"] = {"lin1": L.linear_spec(ch0, ted),
+                            "lin2": L.linear_spec(ted, ted)}
+    ss = cfg.time_scale_shift
     down = []
     c_prev = ch0
     for lvl, c_out in enumerate(cfg.block_out_channels):
         blk: Params = {"resnets": [], "attns": []}
         for i in range(cfg.layers_per_block):
             blk["resnets"].append(
-                _resnet_specs(c_prev if i == 0 else c_out, c_out, ted))
+                _resnet_specs(c_prev if i == 0 else c_out, c_out, ted, ss))
             if cfg.attn_levels[lvl]:
                 blk["attns"].append(_transformer_specs(
                     c_out, cfg.cross_attention_dim,
@@ -115,8 +116,8 @@ def param_specs(cfg: UNetConfig) -> Params:
     p["down"] = down
 
     c_mid = cfg.block_out_channels[-1]
-    p["mid"] = {"res1": _resnet_specs(c_mid, c_mid, ted),
-                "res2": _resnet_specs(c_mid, c_mid, ted)}
+    p["mid"] = {"res1": _resnet_specs(c_mid, c_mid, ted, ss),
+                "res2": _resnet_specs(c_mid, c_mid, ted, ss)}
     if cfg.mid_attn:
         p["mid"]["attn"] = _transformer_specs(
             c_mid, cfg.cross_attention_dim, cfg.mid_transformer_layers,
@@ -132,7 +133,7 @@ def param_specs(cfg: UNetConfig) -> Params:
         for j in range(cfg.layers_per_block + 1):
             res_skip = c_skip_base if j == cfg.layers_per_block else c_out
             res_in = (c_prev_blk if j == 0 else c_out) + res_skip
-            blk["resnets"].append(_resnet_specs(res_in, c_out, ted))
+            blk["resnets"].append(_resnet_specs(res_in, c_out, ted, ss))
             if cfg.attn_levels[lvl]:
                 blk["attns"].append(_transformer_specs(
                     c_out, cfg.cross_attention_dim,
@@ -154,17 +155,26 @@ def _oihw(conv_p: Params) -> Params:
 
 def _resnet(p, x, temb, groups, tiling=(False, False)):
     te = L.linear(p["time_emb"], L.silu(temb))[:, None, None, :]
+    tx, ty = tiling
     if any(tiling):
-        tx, ty = tiling
         h = L.conv2d_tiled(_oihw(p["conv1"]),
                            L.silu(L.group_norm(p["norm1"], x, groups)),
                            tiling_x=tx, tiling_y=ty)
+    else:
+        h = L.gn_silu_conv3x3(p["norm1"], p["conv1"], x, groups, _EPS)
+    if te.shape[-1] == 2 * h.shape[-1]:
+        # scale_shift: GroupNorm, then h * (1 + scale) + shift, SiLU and a
+        # plain conv2
+        scale, shift = te.chunk(2, dim=-1)
+        h = L.group_norm(p["norm2"], h, groups) * (1.0 + scale) + shift
+        h = L.conv2d_tiled(_oihw(p["conv2"]), L.silu(h), tiling_x=tx,
+                           tiling_y=ty)
+    elif any(tiling):
         # the time embedding is added before the second GroupNorm
         h = L.conv2d_tiled(_oihw(p["conv2"]),
                            L.silu(L.group_norm(p["norm2"], h + te, groups)),
                            tiling_x=tx, tiling_y=ty)
     else:
-        h = L.gn_silu_conv3x3(p["norm1"], p["conv1"], x, groups, _EPS)
         h = L.gn_silu_conv3x3(p["norm2"], p["conv2"], h + te, groups, _EPS)
     if "shortcut" in p:
         x = L.conv2d(p["shortcut"], x)
@@ -183,16 +193,20 @@ def _attn(p, x, ctx, heads):
     return L.linear(p["out"], o)
 
 
-def _tblock(p, x, ctx, heads):
+def _tblock(p, x, ctx, heads, tome_ratio: float = 0.0):
     h = L.layer_norm(p["ln1"], x)
-    x = x + _attn(p["attn1"], h, h, heads)
+    if tome_ratio > 0:
+        x = x + tome.tome_self_attention(
+            lambda t: _attn(p["attn1"], t, t, heads), h, tome_ratio)
+    else:
+        x = x + _attn(p["attn1"], h, h, heads)
     h = L.layer_norm(p["ln2"], x)
     x = x + _attn(p["attn2"], h, ctx, heads)
     h = L.layer_norm(p["ln3"], x)
     return x + L.linear(p["ff2"], L.geglu(p["ff1"], h))
 
 
-def _transformer(p, x, ctx, heads, groups, linear_proj):
+def _transformer(p, x, ctx, heads, groups, linear_proj, tome_ratio=0.0):
     """Spatial transformer over an NHWC feature map: 1x1 conv projections
     (SD1.x) or linear ones on [B, HW, C] (SD2, SDXL)."""
     b, h, w, c = x.shape
@@ -203,7 +217,7 @@ def _transformer(p, x, ctx, heads, groups, linear_proj):
     else:
         x = L.conv2d(p["proj_in"], x).reshape(b, h * w, c)
     for blk in p["blocks"]:
-        x = _tblock(blk, x, ctx, heads)
+        x = _tblock(blk, x, ctx, heads, tome_ratio)
     if linear_proj:
         x = L.linear(p["proj_out"], x).reshape(b, h, w, c)
     else:
@@ -228,18 +242,10 @@ def apply(params: Params, cfg: UNetConfig, x, timesteps, context, *,
     (one a skip) and ``mid_residual`` are a ControlNet's, added to the
     skips after the down path and after the mid block's last resnet;
     ``adapter_states`` (one a level, or None) a T2I adapter's, added after
-    a level's last resnet, before its skip is pushed. The conditioning
-    arguments of the JAX package's signature are kept; those not ported
-    yet raise."""
-    _check_config(cfg)
-    if class_labels is not None:
-        raise NotImplementedError(
-            "class_labels (the x4 upscaler's noise level) are not ported "
-            "to gyre_tpu_torch yet (ROADMAP D4b)")
-    if tome_ratio > 0:
-        raise NotImplementedError(
-            "token merging is not ported to gyre_tpu_torch yet (ROADMAP "
-            "C6)")
+    a level's last resnet, before its skip is pushed. ``class_labels`` [B]
+    (the x4 upscaler's noise level) go through ``class_embed`` when the
+    config has it; ``tome_ratio`` merges that fraction of each
+    self-attention's source tokens (ops/tome.py)."""
     dtype = x.dtype
     groups = cfg.norm_groups
     lp = cfg.linear_projection
@@ -256,6 +262,10 @@ def apply(params: Params, cfg: UNetConfig, x, timesteps, context, *,
                          tids.reshape(x.shape[0], -1)], dim=-1)
         temb = temb + L.linear(params["add_embed"]["lin2"], L.silu(
             L.linear(params["add_embed"]["lin1"], aug.to(dtype))))
+    if cfg.class_embed and class_labels is not None:
+        cemb = L.timestep_embedding(class_labels, cfg.block_out_channels[0])
+        temb = temb + L.linear(params["class_embed"]["lin2"], L.silu(
+            L.linear(params["class_embed"]["lin1"], cemb.to(dtype))))
 
     tx, ty = tiling
     h = L.conv2d_tiled(params["conv_in"], x, tiling_x=tx, tiling_y=ty)
@@ -265,7 +275,7 @@ def apply(params: Params, cfg: UNetConfig, x, timesteps, context, *,
             h = _resnet(res, h, temb, groups, tiling)
             if blk["attns"]:
                 h = _transformer(blk["attns"][i], h, context,
-                                 cfg.num_heads[lvl], groups, lp)
+                                 cfg.num_heads[lvl], groups, lp, tome_ratio)
             if (adapter_states is not None and
                     i == len(blk["resnets"]) - 1 and
                     lvl < len(adapter_states) and
@@ -282,7 +292,8 @@ def apply(params: Params, cfg: UNetConfig, x, timesteps, context, *,
     h = _resnet(mid["res1"], h, temb, groups, tiling)
     if "attn" in mid:
         h = _transformer(mid["attn"], h, context,
-                         cfg.num_heads[cfg.levels - 1], groups, lp)
+                         cfg.num_heads[cfg.levels - 1], groups, lp,
+                         tome_ratio)
     h = _resnet(mid["res2"], h, temb, groups, tiling)
     if mid_residual is not None:
         h = h + mid_residual.to(dtype)
@@ -294,7 +305,7 @@ def apply(params: Params, cfg: UNetConfig, x, timesteps, context, *,
             h = _resnet(res, h, temb, groups, tiling)
             if blk["attns"]:
                 h = _transformer(blk["attns"][j], h, context,
-                                 cfg.num_heads[lvl], groups, lp)
+                                 cfg.num_heads[lvl], groups, lp, tome_ratio)
         if "upsample" in blk:
             h = L.conv2d_tiled(blk["upsample"], L.upsample_nearest_2x(h),
                                tiling_x=tx, tiling_y=ty)

@@ -4,7 +4,9 @@ Counterpart of gyre_tpu/pipeline/unified.py. A request runs: prompt
 encoding (CLIP, weighted and chunked prompts), the initial latents of its
 mode, any of the protocol's samplers over the CFG-wrapped UNet (parallel
 CFG: both halves in one UNet call; ``cfg_sequential``: two calls of one
-half each, forced off under a cfg_only hint) with its per-step noise
+half each, forced off under a cfg_only hint; ``tome_ratio``: token merging
+in the engine's UNet, not a grafted one's, as in the JAX package) with its
+per-step noise
 (``make_noise_fn``), the VAE decode (in overlapping tiles past
 ``VAE_TILE_THRESHOLD`` latents) and, on request, quantisation to uint8 on
 the device.
@@ -468,12 +470,13 @@ class UnifiedPipeline:
     def _denoiser(self, ctx_u, ctx_g, guidance_scale, guided: bool,
                   tiling=(False, False), wrap_model=None, ms=None,
                   hints: _HintStack | None = None, added=(None, None),
-                  cfg_parallel: bool = True):
+                  cfg_parallel: bool = True, tome_ratio: float = 0.0):
         """denoise(x, sigma) -> x0 through ``ms``'s UNet (this engine's by
         default), conditioned by ``hints`` and by ``added`` (SDXL's
         (added_u, added_g), or Nones), its input built by ``wrap_model``
         (inpaint9, depth2img) and CFG-guided when ``guided``, both halves
-        in one call unless not ``cfg_parallel``."""
+        in one call unless not ``cfg_parallel``; its self-attentions merge
+        ``tome_ratio`` of their tokens (ToMe)."""
         ms = ms or self.ms
         ucfg = ms.config.unet
         cdt = self.compute_dtype
@@ -481,7 +484,7 @@ class UnifiedPipeline:
         def raw_unet(x, t, context, **cond):
             return unet_mod.apply(ms.unet_params, ucfg, x.to(cdt), t,
                                   context.to(cdt), tiling=tiling,
-                                  **cond).float()
+                                  tome_ratio=tome_ratio, **cond).float()
 
         model_fn = raw_unet if hints is None else hints.wrap(raw_unet)
         if wrap_model:
@@ -632,6 +635,7 @@ class UnifiedPipeline:
                   hints=None,
                   clip_guidance_scale: float = 0.0,
                   cfg_sequential: bool = False,
+                  tome_ratio: float = 0.0,
                   clip_layer: int = 0,
                   noise_type: str = "normal",
                   progress_callback=None,
@@ -722,7 +726,8 @@ class UnifiedPipeline:
             wrap_model = modes.make_extra_channels_wrapper(extra)
         dn_base = self._denoiser(ctx_u, ctx_g, gs_arg, guided, tiling_xy,
                                  wrap_model, hints=hint_stack, added=added,
-                                 cfg_parallel=not cfg_sequential)
+                                 cfg_parallel=not cfg_sequential,
+                                 tome_ratio=float(tome_ratio))
         if self._graft_pipe is not None:
             # the top model under its own prediction type, without SDXL's
             # added conditioning (as in the JAX package)

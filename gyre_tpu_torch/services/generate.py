@@ -28,14 +28,17 @@ applies them, on the dispatcher's thread: so an RGBA init image's alpha
 becomes a feathered mask, and an ordinary image a depth, canny, colour or
 shuffle hint. A request addressed to a task engine (depth, edge, line
 art, pose, segmentation, normals, lines, background removal, or an
-image-space upscaler: ESRGAN, SwinIR, HAT) transforms its init image
-through that engine and answers one image (RGBA from background removal,
-4x the init image from an upscaler). The engine's
-``options:`` are read as the JAX servicer reads them (request values win),
-``cfg_sequential`` among them, and any other key is ignored. What the port
-lacks answers UNIMPLEMENTED, naming its ROADMAP item, and is never ignored
-silently where it would change the image: CLIP guidance (C7), ToMe (C6),
-the diffusion upscalers and face restoration (D4b). The safety checker is
+image-space upscaler: ESRGAN, SwinIR, HAT; the sd-x4 and sd-x2 diffusion
+upscalers; face restoration, CodeFormer) transforms its init image through
+that engine and answers one image (RGBA from background removal, 4x or 2x
+the init image from an upscaler). As in the JAX servicer, such a request
+passes the engine its init image alone: a diffusion upscaler runs with no
+prompt and seed 0, and the answer's artifact reports the request's seed.
+The engine's ``options:`` are read as the JAX servicer reads them
+(request values win), ``cfg_sequential`` and ``tome_ratio`` among them,
+and any other key is ignored. What the port lacks answers UNIMPLEMENTED,
+naming its ROADMAP item, and is never ignored silently where it would
+change the image: CLIP guidance (C7). The safety checker is
 not ported (ROADMAP C6): as the JAX package without trained checker
 weights, nothing is flagged.
 """
@@ -98,6 +101,7 @@ class ExtractedParams:
     hires_oos_fraction: float = 0.25
     tiling: bool | str = False
     cfg_sequential: bool = False
+    tome_ratio: float = 0.0
     echo_artifacts: list = field(default_factory=list)
     lora_artifacts: list = field(default_factory=list)
     ti_artifacts: list = field(default_factory=list)
@@ -545,8 +549,7 @@ class GenerationServiceServicer:
     def _engine_options(p: ExtractedParams, opts: dict):
         """The engine's ``options:`` as request defaults, the keys the JAX
         servicer reads; an option that would change the image and that the
-        port lacks raises (ToMe C6, CLIP guidance C7); others are
-        ignored."""
+        port lacks raises (CLIP guidance C7); others are ignored."""
         if not p.sampler_set:
             p.sampler = opts.get("sampler", p.sampler)
         if p.karras_rho is None and "karras_rho" in opts:
@@ -560,8 +563,7 @@ class GenerationServiceServicer:
         if float(opts.get("clip_guidance_scale", 0.0)) or (
                 isinstance(clip, dict) and clip.get("guidance_scale")):
             _unported_clip_guidance()
-        if float(opts.get("tome_ratio", 0.0)) > 0:
-            _unported("ToMe (engine option tome_ratio)", "C6")
+        p.tome_ratio = float(opts.get("tome_ratio", 0.0))
 
     def _run_task(self, p: ExtractedParams, spec):
         """A request to a task engine: its init image through the engine's
@@ -630,6 +632,7 @@ class GenerationServiceServicer:
                     hires_oos_fraction=p.hires_oos_fraction,
                     hints=hints or None,
                     cfg_sequential=p.cfg_sequential,
+                    tome_ratio=p.tome_ratio,
                     output_dtype="uint8", stop_event=stop_event,
                     chunk_steps=10 if stop_event is not None else 0)
                 try:

@@ -5,9 +5,9 @@ client.py's --mask_from_image_alpha and --hint_from_image (depth, canny,
 color, shuffle, hed) requests extract (1e-4, hed 1e-3; the shuffle given
 the JAX flow), a request addressed to a depth or edge engine (its PNG
 within one level), the engine of config/examples.yaml with its
-``options:``, the options the port lacks (ToMe C6, CLIP guidance C7) and
-the diffusion upscaler and CodeFormer (D4b) answering UNIMPLEMENTED
-while background removal answers, a request to the normal
+``options:``, CLIP guidance (C7) answering UNIMPLEMENTED and ToMe serving,
+the diffusion upscalers, CodeFormer and background removal answering
+their images, a request to the normal
 engine (which the JAX servicer runs as a generation),
 ``cfg_sequential`` reaching the pipeline; then client.py itself against
 the port's server for each."""
@@ -168,12 +168,27 @@ def test_examples_engine_options_serve_as_in_jax(servicers):
     ({"tome_ratio": 0.5}, "C6"), ({"clip_guidance_scale": 0.3}, "C7"),
     ({"clip": {"guidance_scale": 0.4}}, "C7")])
 def test_unported_engine_options_are_unimplemented(options, item):
+    """CLIP guidance (C7) answers UNIMPLEMENTED naming its item. ToMe,
+    filed under C6 until it was ported beside D4b (its case keeps its id),
+    serves: one PNG, not the image of the same request to the same weights
+    without the option (tests/test_torch_tome.py holds it to JAX)."""
     m = TManager([{"id": "tiny", "model": "preset/test",
-                   "options": options}], device="cpu",
+                   "options": options},
+                  {"id": "plain", "model": "preset/test"}], device="cpu",
                  compute_dtype=torch.float32)
     try:
         servicer = tgen.GenerationServiceServicer(m)
         context = TContext()
+        if item == "C6":
+            (got,) = servicer.Generate(_generate_request(tpb, "tiny"),
+                                       context)
+            (plain,) = servicer.Generate(_generate_request(tpb, "plain"),
+                                         TContext())
+            got, plain = (timages.decode_png(a.artifacts[0].binary)
+                          for a in (got, plain))
+            assert got.shape == plain.shape == (1, 64, 64, 3)
+            assert np.abs(got - plain).max() > 1.0 / 255
+            return
         with pytest.raises(TAbortError):
             list(servicer.Generate(_generate_request(tpb, "tiny"), context))
         assert context.code == grpc.StatusCode.UNIMPLEMENTED
@@ -183,8 +198,9 @@ def test_unported_engine_options_are_unimplemented(options, item):
 
 
 def test_cfg_sequential_and_ignored_options_reach_the_pipeline(monkeypatch):
-    """``cfg_sequential`` reaches the pipeline; an option the port does not
-    read (tome_ratio 0, a non-dict clip) changes nothing."""
+    """``cfg_sequential`` and ``tome_ratio`` reach the pipeline; an option
+    the port does not read (a non-dict clip, an unknown key) changes
+    nothing."""
     m = TManager([{"id": "tiny", "model": "preset/test",
                    "options": {"cfg_sequential": True, "tome_ratio": 0.0,
                                "clip": "@clip-common", "unknown": 1}}],
@@ -202,8 +218,8 @@ def test_cfg_sequential_and_ignored_options_reach_the_pipeline(monkeypatch):
         answers = list(servicer.Generate(_generate_request(tpb, "tiny"),
                                          TContext()))
         assert len(answers) == 1
-        assert [k.get("cfg_sequential") for k in seen if "seeds" in k] == \
-            [True]
+        assert [(k.get("cfg_sequential"), k.get("tome_ratio"))
+                for k in seen if "seeds" in k] == [(True, 0.0)]
     finally:
         m.dispatcher.stop()
 
@@ -230,17 +246,21 @@ def test_unported_hinter_engines_are_unimplemented(depth_ckpt, hed_ckpt,
     config/engines/utility.yaml's edge engine over a HED checkpoint,
     client.py's ``--hint_from_image hed:`` hint equals the JAX servicer's
     (1e-3) and a request to the engine answers its PNG (within one
-    level). The engines still unported answer UNIMPLEMENTED naming their
-    item: the sd-x4 and sd-x2 diffusion upscalers and CodeFormer (ROADMAP
-    D4b; a background-removal engine answered so, naming D3b, until
-    InSPyReNet was ported: it now answers an RGBA image). The edge and
-    background-removal engines are ready, the D4b engines are not."""
+    level). So do the engines of ROADMAP D4b, which answered UNIMPLEMENTED
+    until they were ported: the sd-x4 and sd-x2 diffusion upscalers (at
+    their test presets, 2 steps) answer a PNG 4x and 2x the init image,
+    each equal within one level to its engine's pipeline run in-process
+    (tests/test_torch_diffusion_upscaler.py holds those to JAX), and
+    CodeFormer (random at CODEFORMER_TEST) one of the init image's size;
+    background removal an RGBA image (D3b). Every engine is ready."""
     engines = _engines(depth_ckpt) + [
         {"id": "hed-edge", "task": "edge", "model": hed_ckpt}]
     tm = TManager(engines + [
         {"id": "background-removal", "task": "background_removal"},
-        {"id": "upscaler-x4", "task": "upscaler", "kind": "sd-x4"},
-        {"id": "upscaler-x2", "task": "upscaler", "kind": "sd-x2"},
+        {"id": "upscaler-x4", "task": "upscaler", "kind": "sd-x4",
+         "model": "preset/upscaler-x4-test", "steps": 2},
+        {"id": "upscaler-x2", "task": "upscaler", "kind": "sd-x2",
+         "model": "preset/upscaler-x2-test", "steps": 2},
         {"id": "codeformer", "task": "face_restore"}],
         device="cpu", compute_dtype=torch.float32)
     jm = JManager(engines, compute_dtype=jnp.float32)
@@ -267,20 +287,25 @@ def test_unported_hinter_engines_are_unimplemented(depth_ckpt, hed_ckpt,
         ji = timages.decode_png(ji[0].artifacts[0].binary)
         assert ti.shape == ji.shape == (1, 64, 64, 3)
         assert np.abs(ti - ji).max() <= 1.0 / 255 + 1e-6
-        for eid in ("upscaler-x4", "upscaler-x2", "codeformer"):
-            context = TContext()
-            with pytest.raises(TAbortError):
-                list(port.Generate(_task_request(tpb, eid), context))
-            assert context.code == grpc.StatusCode.UNIMPLEMENTED
-            assert "ROADMAP D4b" in context.details
+        small = IMG[:16, :16]
+        for eid, size in (("upscaler-x4", 64), ("upscaler-x2", 32),
+                          ("codeformer", 16)):
+            (answer,) = port.Generate(_task_request(tpb, eid, small),
+                                      TContext())
+            served = timages.decode_png(answer.artifacts[0].binary)
+            assert served.shape == (1, size, size, 3)
+            init = timages.decode_png(timages.encode_png(small))
+            direct = tm.task_pipeline(tm.spec(eid).task, eid)(init)
+            assert np.abs(served - direct.numpy()).max() <= \
+                1.0 / 255 + 1e-6
         bg = list(port.Generate(_task_request(tpb, "background-removal"),
                                 TContext()))
         bg = timages.decode_png(bg[0].artifacts[0].binary)
         assert bg.shape == (1, 64, 64, 4)
         ready = {s["id"]: s["ready"] for s in tm.status()}
-        assert ready["hed-edge"] and ready["background-removal"]
-        assert not any(ready[e] for e in ("upscaler-x4", "upscaler-x2",
-                                          "codeformer"))
+        assert all(ready[e] for e in ("hed-edge", "background-removal",
+                                      "upscaler-x4", "upscaler-x2",
+                                      "codeformer"))
     finally:
         tm.dispatcher.stop()
         jm.dispatcher.stop()

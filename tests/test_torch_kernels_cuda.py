@@ -20,7 +20,10 @@ ControlNet's batch-1 shapes (one CFG row); K1 at SD2's and SDXL's head
 dim 64 and K2a/K2b at the SDXL refiner's channel counts (12 to 96
 channels a group); K1 at DPT-Large's self-attention (one image, 16 heads
 of 64, T = 257 / 577 / 1025: ragged query rows) and inside the DPT's
-blocks, and K2a/K2b at the SD1.5 UNet's one-row shapes of cfg_sequential.
+blocks, and K2a/K2b at the SD1.5 UNet's one-row shapes of cfg_sequential;
+K1 at the x4 upscaler's head dims 8, 16 and 32 and its VAE's 512 over
+16384 tokens, at the k-UNet's head dim 64 and on ToMe's merged tokens;
+K2a/K2b at the x4 UNet's 2 channels a group and Co = 64.
 Bounds as in chip_smoke.py:
 2e-2 of max |plain| in bf16 (compounded bf16 rounding, ~5x margin), 1e-3
 for K2a's f32 statistics.
@@ -407,3 +410,84 @@ def test_kernels_at_one_row(gen, hw, c, co):
     chain_ref = FC.gn_silu_conv3x3_plain(x, gs, gb, wt, cb, groups=32,
                                          eps=1e-5)
     assert _rel(chain, chain_ref) <= BF16_BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,tq,tk,d", [
+    (2, 8, 16384, 16384, 8), (2, 8, 16384, 77, 8), (2, 8, 4096, 4096, 16),
+    (2, 8, 1024, 77, 32), (1, 1, 16384, 16384, 512)])
+def test_flash_attention_x4_upscaler(gen, b, h, tq, tk, d):
+    """The x4 upscaler's head dims at a 128² input: 8 (its 64-wide level,
+    16384 tokens: half of every product is the pad to 16), 16 and 32, self
+    and against 77 text tokens; and its VAE's mid block, one head of 512
+    over 16384 tokens (the plain version's 1 GiB of f32 logits)."""
+    q = _btd(gen, b, tq, h, d)
+    k, v = _btd(gen, b, tk, h, d), _btd(gen, b, tk, h, d)
+    assert _rel(A.attention(q, k, v), _attention_ref(q, k, v)) <= BF16_BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,c,co", [
+    (128, 64, 64), (128, 128, 64), (128, 192, 64), (64, 64, 128),
+    (32, 128, 256), (16, 512, 256)])
+def test_kernels_at_x4_upscaler_channels(gen, hw, c, co):
+    """K2a at 2 to 16 channels a group (x4 UNet widths 64-512 in 32
+    groups: a slab of 8 channels holds 4 groups at 64) and K2b at Co = 64,
+    half of its 128-channel tile, at a CFG call's two rows."""
+    x = (torch.randn((2, hw, hw, c), generator=gen, device="cuda") +
+         torch.randn((c,), generator=gen, device="cuda")).to(torch.bfloat16)
+    gs = 1 + 0.1 * _randn(gen, c, dtype=torch.float32)
+    gb = 0.1 * _randn(gen, c, dtype=torch.float32)
+    wt = _randn(gen, 3, 3, c, co) * (9 * c) ** -0.5
+    cb = 0.1 * _randn(gen, co, dtype=torch.float32)
+    a, bb = FC.gn_affine(x, gs, gb, 32, 1e-5)
+    a_ref, b_ref = FC.gn_affine_plain(x, gs, gb, 32, 1e-5)
+    assert _rel(a, a_ref) <= F32_STATS_BOUND
+    assert _rel(bb, b_ref) <= F32_STATS_BOUND
+    chain = FC.gn_silu_conv3x3(x, gs, gb, wt, cb, groups=32, eps=1e-5)
+    chain_ref = FC.gn_silu_conv3x3_plain(x, gs, gb, wt, cb, groups=32,
+                                         eps=1e-5)
+    assert _rel(chain, chain_ref) <= BF16_BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,tk,h", [(4096, 77, 12), (256, 256, 24),
+                                    (256, 77, 24)])
+def test_flash_attention_kunet(gen, t, tk, h):
+    """The sd-x2 k-UNet's attentions at a 512² input (head dim 64):
+    cross-attention at its 768-wide 64² level, self- and cross-attention
+    at its 1536-wide 16² level."""
+    q = _btd(gen, 2, t, h, 64)
+    k, v = _btd(gen, 2, tk, h, 64), _btd(gen, 2, tk, h, 64)
+    assert _rel(A.attention(q, k, v), _attention_ref(q, k, v)) <= BF16_BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,heads", [(4096, 320, 8), (1024, 640, 8)])
+def test_tome_merged_self_attention(gen, n, c, heads):
+    """ToMe at ratio 0.5 on SD1.5's two first levels: the merged tokens
+    (T = N - r) projected and through K1, one launch, against the plain
+    attention of the same merged tokens; the unmerged output has N
+    tokens."""
+    from gyre_tpu_torch.models import unet as U
+    from gyre_tpu_torch.ops import tome
+
+    x = _randn(gen, 2, n, c)
+    p = {name: {"w": _randn(gen, c, c) * c ** -0.5}
+         for name in ("q", "k", "v")}
+    p["out"] = {"w": _randn(gen, c, c) * c ** -0.5,
+                "b": _randn(gen, c) * 0.1}
+    r = tome.merge_count(n, 0.5)
+    merged, info = tome.merge(x, r)
+    assert merged.shape == (2, n - r, c) and merged.is_contiguous()
+    before = _build.launches["flash_attention"]
+    out = U._attn(p, merged, merged, heads)
+    assert _build.launches["flash_attention"] == before + 1
+    d = c // heads
+    q, k, v = (torch.nn.functional.linear(merged, p[nm]["w"]).view(
+        2, n - r, heads, d) for nm in ("q", "k", "v"))
+    ref = torch.nn.functional.linear(
+        _attention_ref(q, k, v).reshape(2, n - r, c), p["out"]["w"],
+        p["out"]["b"])
+    assert _rel(out, ref) <= BF16_BOUND
+    assert tome.unmerge(out, info).shape == (2, n, c)

@@ -295,12 +295,17 @@ def test_txt2img_from_loaded_engine_matches_jax(exported):
     ("load_clip_model_params", "C6"), ("load_kunet_params", "D4")])
 def test_other_loaders_name_their_roadmap_item(loader, item):
     """A loader not ported yet raises naming its ROADMAP item; the
-    ControlNet's (C4, ported since) is strict: an empty state dict names
-    the first key it lacks."""
+    ControlNet's (C4) and the k-UNet's (D4b), ported since, are strict: an
+    empty state dict names the first key each lacks (tests/
+    test_torch_kunet.py holds the k-UNet's loader to the JAX one's)."""
     if item == "C4":
         with pytest.raises(ValueError, match="no leaf conv_in.weight"):
             tload.load_controlnet_params({}, tconfigs.UNET_TEST,
                                          device="cpu")
+        return
+    if item == "D4":
+        with pytest.raises(KeyError, match="conv_in.weight"):
+            tload.load_kunet_params({}, device="cpu")
         return
     with pytest.raises(NotImplementedError, match=item):
         getattr(tload, loader)({})

@@ -72,7 +72,8 @@ def test_status_reports_weight_provenance(weight_root):
     m = _manager([{"id": "loaded", "model": "org/tiny", "default": True},
                   {"id": "random", "model": {"preset": "test", "seed": 3}},
                   {"id": "off", "model": "org/tiny", "enabled": False},
-                  {"id": "up", "task": "upscaler", "kind": "sd-x4"}],
+                  {"id": "up", "task": "upscaler", "kind": "sd-x4",
+                   "model": "preset/upscaler-x4-test", "steps": 2}],
                  weight_root)
     try:
         m.load_engines()
@@ -81,17 +82,23 @@ def test_status_reports_weight_provenance(weight_root):
         assert status["random"]["weights"] == "random"
         assert status["off"]["weights"] == "pending"
         assert status["loaded"]["ready"] and not status["off"]["ready"]
-        # the diffusion upscaler: not ready, the port has no pipeline for
-        # it (D4b)
-        assert not status["up"]["ready"]
+        # the diffusion upscaler (D4b): ready, its weights pending until
+        # its first use builds it, then random (its test preset)
+        assert status["up"]["ready"] and status["up"]["weights"] == \
+            "pending"
         ref = tload.load_modelset(os.path.join(weight_root, "org--tiny"),
                                   tconfigs.SD_TEST, dtype=torch.float32,
                                   device="cpu")
         for a, b in zip(_leaves(m.modelset("loaded").unet_params),
                         _leaves(ref.unet_params)):
             assert torch.equal(a, b)
-        with pytest.raises(NotImplementedError, match="ROADMAP D"):
+        # a task engine has no generate ModelSet of its own; its pipeline
+        # holds one
+        with pytest.raises(ValueError, match="upscaler engine"):
             m.modelset("up")
+        up = m.task_pipeline("upscaler", "up")
+        assert up.upscaler.ms.config.unet.class_embed
+        assert {s["id"]: s["weights"] for s in m.status()}["up"] == "random"
     finally:
         m.dispatcher.stop()
 
@@ -377,21 +384,26 @@ def _ready_by_rpc_and_status(manager):
 
 
 def test_task_engine_is_not_ready(weight_root):
-    """A task engine the port has no pipeline for (the sd-x4 diffusion
-    upscaler, D4b; before ESRGAN was ported, any upscaler) is not ready;
-    a depth engine (D2) and an ESRGAN upscaler are, once the engines have
-    loaded."""
+    """Task engines are ready once the engines have loaded (the test keeps
+    its name from when the sd-x4 diffusion upscaler, D4b, and before
+    ESRGAN any upscaler, were not): the sd-x4 and sd-x2 diffusion
+    upscalers, CodeFormer, ESRGAN and a depth engine (D2), over ListEngines
+    and /status alike; none is a generate engine with a ModelSet."""
     m = _manager([{"id": "gen", "model": "org/tiny", "default": True},
                   {"id": "up", "task": "upscaler", "kind": "sd-x4"},
+                  {"id": "x2", "task": "upscaler", "kind": "sd-x2"},
+                  {"id": "face", "task": "face_restore"},
                   {"id": "esrgan", "task": "upscaler"},
                   {"id": "depth", "task": "depth"}], weight_root)
     try:
         m.load_engines()
         listed, status = _ready_by_rpc_and_status(m)
-        assert listed == status == {"gen": True, "up": False,
-                                    "esrgan": True, "depth": True}
-        with pytest.raises(NotImplementedError, match="ROADMAP D"):
-            m.modelset("up")
+        assert listed == status == {"gen": True, "up": True, "x2": True,
+                                    "face": True, "esrgan": True,
+                                    "depth": True}
+        for eid in ("up", "x2", "face"):
+            with pytest.raises(ValueError, match="no generate ModelSet"):
+                m.modelset(eid)
     finally:
         m.dispatcher.stop()
 

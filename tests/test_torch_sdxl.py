@@ -252,6 +252,30 @@ def test_sdxl_presets_build_specs(preset, unet_params, embed_dim, ids):
 
 @pytest.mark.parametrize("field", ["class_embed", "time_scale_shift"])
 def test_upscaler_conditioning_raises_naming_d4(field):
-    cfg = dataclasses.replace(tconfigs.UNET_TEST, **{field: True})
-    with pytest.raises(NotImplementedError, match="ROADMAP D4"):
-        tunet.param_specs(cfg)
+    """The upscalers' UNet conditioning builds (the test keeps its name from
+    before ROADMAP D4b, when it raised): the port's spec tree at UNET_TEST
+    with the field takes the JAX init's tree through the strict bridge (a
+    missing, extra or misshapen leaf raises) with the new leaves in it, and
+    a ControlNet of that config takes the JAX ControlNet's tree (its
+    resnets keep additive time conditioning in both packages).
+    tests/test_torch_diffusion_upscaler.py holds the outputs to JAX."""
+    jcfg = dataclasses.replace(configs.UNET_TEST, **{field: True})
+    tcfg = dataclasses.replace(tconfigs.UNET_TEST, **{field: True})
+    tree = tms._from_jax(
+        tunet.param_specs(tcfg),
+        jax.tree.map(np.asarray, junet.init(jax.random.PRNGKey(0), jcfg)),
+        "unet", torch.float32, torch.device("cpu"))
+    res = tree["down"][0]["resnets"][0]
+    if field == "class_embed":
+        assert tree["class_embed"]["lin1"]["w"].shape == (
+            jcfg.time_embed_dim, jcfg.block_out_channels[0])
+        assert res["time_emb"]["w"].shape[0] == res["conv1"]["w"].shape[-1]
+    else:
+        assert "class_embed" not in tree
+        assert res["time_emb"]["w"].shape[0] == \
+            2 * res["conv1"]["w"].shape[-1]
+    cn = tms.controlnet_from_jax(
+        jax.tree.map(np.asarray, jcn.init(jax.random.PRNGKey(1), jcfg)),
+        tcfg, device="cpu")
+    cres = cn["down"][0]["resnets"][0]
+    assert cres["time_emb"]["w"].shape[0] == cres["conv1"]["w"].shape[-1]

@@ -5,7 +5,8 @@ an ESRGAN, a SwinIR and a HAT engine (the PNGs within one level: no noise
 enters an upscale), a request to the background-removal engine (its RGBA
 PNG within one level) and client.py's ``--hint_from_image nobg:depth:``
 chain (background removal, the depth hint, the mask reapplied as alpha;
-2e-3); ListEngines of the upscale group (``client.py --list-upscalers``);
+2e-3); ListEngines of the upscale group (``client.py --list-upscalers``),
+the sd-x4 diffusion upscaler among them, ready and answering;
 then the SDXL base -> refiner -> ESRGAN ChainGenerate of
 tests/test_sdxl_chain.py through the port alone (the JAX package's noise
 differs by design), its one answer 4x the refined image and equal to the
@@ -72,7 +73,9 @@ def servicers(tmp_path_factory):
         {"id": "background-removal", "task": "background_removal",
          "model": paths["background-removal"]}]
     tm = TManager(engines + [{"id": "upscaler-x4", "task": "upscaler",
-                              "kind": "sd-x4"}],
+                              "kind": "sd-x4",
+                              "model": "preset/upscaler-x4-test",
+                              "steps": 2}],
                   device="cpu", compute_dtype=torch.float32)
     jm = JManager(engines, compute_dtype=jnp.float32)
     tm.load_engines()
@@ -148,14 +151,22 @@ def test_nobg_hint_matches_jax(servicers, tmp_path, monkeypatch):
 
 def test_list_upscalers(servicers):
     """ListEngines of the UPSCALE group (``client.py --list-upscalers``):
-    the image-space upscalers ready, the sd-x4 diffusion upscaler listed
-    but not ready (ROADMAP D4b)."""
-    _, _, tm, _ = servicers
+    the image-space upscalers and the sd-x4 diffusion upscaler (ROADMAP
+    D4b, not ready before it was ported) ready; the x4 engine answers
+    client.py's ``-e upscaler-x4 -i`` with a PNG 4x the image."""
+    port, _, tm, _ = servicers
     engines = EnginesServiceServicer(tm).ListEngines(
         epb.ListEnginesRequest(task_group=epb.UPSCALE), TContext()).engine
     assert {e.id: e.ready for e in engines} == {
         "esrgan-x4": True, "swinir-x4": True, "hat-x4": True,
-        "upscaler-x4": False}
+        "upscaler-x4": True}
+    req = tpb.Request(engine_id="upscaler-x4", request_id="x4")
+    p = req.prompt.add()
+    p.artifact.type = tpb.ARTIFACT_IMAGE
+    p.artifact.binary = timages.encode_png(IMG)
+    p.parameters.init = True
+    img = _image(port.Generate(req, TContext()))
+    assert img.shape == (1, 128, 96, 3) and img.std() > 1e-3
 
 
 def _chain(stages, seed=11):
