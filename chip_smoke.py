@@ -41,7 +41,17 @@ Phases, each printing one JSON object per line:
                x4 UNet's head dims 8, 16 and 32 and its 64-256 channels
                at 2 to 8 channels a group, Co = 64 among them; the
                k-UNet's head dim 64; ToMe's merged token counts 3072, 768,
-               192 and 48), summed on an "upscaler_shapes" line
+               192 and 48), summed on an "upscaler_shapes" line; and at
+               the clip phase's (_clip_shapes: ViT-L/14's attention on 4
+               guidance views and a safety batch of 8, the style
+               adapter's [1, 265, 8, 128], the UNet's cross-attention
+               against 85 tokens, the VAE decoder on two 28² latent
+               cutouts: its mid block over 784 tokens and its convs at 28²
+               to 224²), summed on a "clip_shapes" line; then one row each
+               for K1 and K2 of a forward + backward through their
+               recompute Functions against the plain twins' autograd at
+               the cond stem's 64² shapes, timed, the gradients within
+               GRAD_ROW_BOUND
   4. pipeline  UnifiedPipeline on full-width SD1.5 (random weights from a
                seed): 512x512, 20 steps k_dpmpp_2m, CFG 7.5 (parallel),
                bf16, chunk_steps=10 with a stop_event, uint8 on the device.
@@ -210,6 +220,34 @@ Phases, each printing one JSON object per line:
                x2 / codeformer -i, and -e sd15-tome), each with its
                launches and within one level of the same work in-process,
                and ListEngines' upscale group with both upscalers ready
+  5k. clip     CLIP guidance, the style hint and the safety checker on
+               full-width SD1.5 (random, seed 0, bf16) served by
+               server.serve with a `clip:` model, a style hintset and a
+               `safety_checker:` key: a CLIPModel ViT-L/14 (text and
+               vision, projection 768) with its config.json and
+               TencentARC's style adapter (1024 wide, 3 layers, 8 tokens,
+               context 768), random, written to disk and loaded through
+               the strict loaders ("real"); in-process at 512², 20 steps,
+               10-step chunks: guided (scale 0.5, 2 approx + 2 VAE
+               cutouts), "mixed", no_cutouts "vae", guided on a LoRA-
+               adapted view, and the style hint, each with its launches
+               exactly as walked from the configs (_clip_paths), wall and
+               peak memory; the guided request traced (device busy
+               share); the guidance loss's gradient through the kernels
+               against the plain twins' on the same bf16 weights and
+               input (CLIP_GRAD_BOUNDS, one for each sigma), and a
+               deliberately cut graph's (must exceed it); a small guided
+               request in bf16 against f32 on the CPU over the same
+               weights, noise and crops (CLIP_CPU_BOUND); over gRPC, client.py's --guidance and
+               --hint style requests (launches, within 1 level of the
+               in-process image); then the batch-8 request's images, a
+               ViT-L checker (17 concepts, 3 special-care) made to flag
+               images 0 and 3, written in diffusers' layout: its scores
+               on the card against the file's in f32 on the CPU
+               (SAFETY_SCORE_BOUND; the flags equal where the margin
+               exceeds it; 24 K1 a check), and the request under
+               --nsfw_behaviour flag (FILTER on those two, the others
+               as unchecked) and block (those two black)
   5e. sd2      an EngineManager engine on the sd21 preset (OpenCLIP-H,
                linear projections, v-prediction; random, seed 0, bf16):
                768x768, 20 steps k_dpmpp_2m, CFG 7.5, batch 1,
@@ -268,9 +306,10 @@ Phases, each printing one JSON object per line:
 
 After each phase from 5 on it prints what the phase left allocated on the
 card. At the end it prints the sums of the mode, ControlNet, C5, adjust,
-hinter and upscaler rows, the "c5_paths" and "upscaler_paths" lines (each
-sd2/sdxl request's, and each x4, x2 and ToMe request's, launches and the
-sums over them of phase 3's kernel, plain, library and bound times), then,
+hinter, upscaler and clip rows, the "c5_paths", "upscaler_paths" and
+"clip_paths" lines (each sd2/sdxl request's, each x4, x2 and ToMe
+request's, and each clip phase request's, launches and the sums over them
+of phase 3's kernel, plain, library and bound times), then,
 before the last line, the kernels table as one JSON object; the last line
 is {"ok": true, "device": {...}}. Any failed check raises and the script
 exits non-zero; without a CUDA device it exits non-zero at once.
@@ -278,6 +317,7 @@ exits non-zero; without a CUDA device it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import importlib.metadata
@@ -348,7 +388,7 @@ def _timed(fn, iters: int = 10, reps: int = 10) -> float:
 
 def _errors(out, ref) -> tuple[float, float]:
     """(max abs error, max abs error / max |ref|)."""
-    out, ref = out.float(), ref.float()
+    out, ref = out.detach().float(), ref.detach().float()
     if not bool(out.isfinite().all()):
         return float("inf"), float("inf")
     err = float((out - ref).abs().max())
@@ -536,12 +576,12 @@ def _controlnet_shapes():
 # ------------------------------------------------- model calls by config
 
 
-def _unet_call_shapes(cfg, size: int, b: int = 2):
+def _unet_call_shapes(cfg, size: int, b: int = 2, tk: int = 77):
     """(K1 launches, K2 launches) of one UNet call at latent size
     ``size``², walked from the port's spec tree of ``cfg``: one entry a
     launch, K1 as (B, H, Tq, Tk, d), K2a/K2b as (B, H=W, C, Co, eps). A
-    transformer block is a self and a cross (77 tokens) attention, a
-    resnet its two fused convs."""
+    transformer block is a self and a cross (``tk`` context tokens: 77, 85
+    with a style hint's 8) attention, a resnet its two fused convs."""
     from gyre_tpu_torch.models import unet
 
     specs = unet.param_specs(cfg)
@@ -556,7 +596,7 @@ def _unet_call_shapes(cfg, size: int, b: int = 2):
                 d = tr["proj_in"]["w"].shape[0] // heads
                 for _ in tr["blocks"]:
                     attns.extend([(b, heads, hw * hw, hw * hw, d),
-                                  (b, heads, hw * hw, 77, d)])
+                                  (b, heads, hw * hw, tk, d)])
 
     last = cfg.levels - 1
     for lvl, blk in enumerate(specs["down"]):
@@ -571,8 +611,8 @@ def _unet_call_shapes(cfg, size: int, b: int = 2):
     return attns, convs
 
 
-def _vae_call_shapes(cfg, size: int, part: str):
-    """(K1 launches, K2 launches) of one VAE call at batch 1, as
+def _vae_call_shapes(cfg, size: int, part: str, b: int = 1):
+    """(K1 launches, K2 launches) of one VAE call of ``b`` rows, as
     _unet_call_shapes: ``part`` "decoder" at latent size ``size``² or
     "encoder" at image size ``size``²; the mid block's attention is one
     head of d = C."""
@@ -585,12 +625,12 @@ def _vae_call_shapes(cfg, size: int, part: str):
     def resnets(blocks, hw):
         for res in blocks:
             _, _, c, co = res["conv1"]["w"].shape
-            convs.extend([(1, hw, c, co, 1e-6), (1, hw, co, co, 1e-6)])
+            convs.extend([(b, hw, c, co, 1e-6), (b, hw, co, co, 1e-6)])
 
     def mid(hw):
         c = specs["mid"]["attn"]["q"]["w"].shape[0]
         resnets([specs["mid"]["res1"], specs["mid"]["res2"]], hw)
-        attns.append((1, 1, hw * hw, hw * hw, c))
+        attns.append((b, 1, hw * hw, hw * hw, c))
 
     if part == "encoder":
         for lvl, blk in enumerate(specs["down"]):
@@ -928,6 +968,113 @@ def _upscaler_shapes():
     return attns, convs
 
 
+# the clip phase: CLIP guidance at scale 0.5 (2 approx and 2 VAE cutouts,
+# "guided") on the phase-4 request in 10-step chunks; the style hint's
+# adapter at its published widths; the safety checker on a batch of 8
+CLIP_SCALE = 0.5
+CLIP_CHUNK = 10
+CLIP_SAFETY_BATCH = 8
+CLIP_SAFETY_FLAGGED = (0, 3)
+STYLE_TOKENS = 8
+
+
+def _vision_call(cfg, b: int):
+    """(K1 launches, no K2) of one CLIP vision tower call on ``b`` images:
+    a non-causal attention a layer at T = (S / patch)² + 1."""
+    t = (cfg.image_size // cfg.patch_size) ** 2 + 1
+    return [(b, cfg.num_heads, t, t, cfg.hidden_size // cfg.num_heads)
+            ] * cfg.num_layers, []
+
+
+def _clip_calls():
+    """The model calls of the clip phase, by name: (K1, K2) shapes of one
+    call. SD1.5 at 512² (64 latents): the CFG UNet (2 rows), the guided
+    step's cond stem (1 row), the UNet under a style hint (85 context
+    tokens) and the decode; the VAE decoder on 2 latent cutouts of 28²
+    (one with no_cutouts "vae"); ViT-L/14's tower on 4 views (2 approx +
+    2 VAE cutouts), on 1 (a style image, a whole-image view) and on the
+    safety check's batch; the style adapter's 3 layers at 257 + 8
+    tokens, 8 heads of 128."""
+    from gyre_tpu_torch.models import clip, configs
+
+    sd = configs.SD15
+    lat = max(clip.CLIP_VISION_L.image_size // 8, 8)
+    d = 1024 // 8
+    t = (clip.CLIP_VISION_L.image_size //
+         clip.CLIP_VISION_L.patch_size) ** 2 + 1 + STYLE_TOKENS
+    return {
+        "sd15_unet": _unet_call_shapes(sd.unet, 64),
+        "sd15_stem": _unet_call_shapes(sd.unet, 64, b=1),
+        "sd15_style_unet": _unet_call_shapes(sd.unet, 64,
+                                             tk=77 + STYLE_TOKENS),
+        "sd15_decode": _vae_call_shapes(sd.vae, 64, "decoder"),
+        "cut_decode_2": _vae_call_shapes(sd.vae, lat, "decoder", b=2),
+        "cut_decode_1": _vae_call_shapes(sd.vae, lat, "decoder", b=1),
+        "vision_4": _vision_call(clip.CLIP_VISION_L, 4),
+        "vision_1": _vision_call(clip.CLIP_VISION_L, 1),
+        "vision_safety": _vision_call(clip.CLIP_VISION_L,
+                                      CLIP_SAFETY_BATCH),
+        "style_adapter": ([(1, 8, t, t, d)] * 3, []),
+    }
+
+
+def _clip_paths():
+    """The clip phase's requests as model calls: {name: [(count, call)]}.
+    A guided step runs the CFG UNet, the cond stem (the backward
+    recomputes plain, launching nothing), the cutouts' decode and the
+    tower; a 20-step request in 10-step chunks adds the decode of its
+    image and one unguided loss after its first chunk (the CFG UNet, the
+    cutouts, the tower); "mixed" takes the gradient through the CFG UNet
+    itself (no stem)."""
+    def guided(step, loss):
+        return [(STEPS, c) for c in step] + [(1, "sd15_decode")] + \
+            [(STEPS // CLIP_CHUNK - 1, c) for c in loss]
+
+    cut4 = ["cut_decode_2", "vision_4"]
+    cut1 = ["cut_decode_1", "vision_1"]
+    return {
+        "guided": guided(["sd15_unet", "sd15_stem"] + cut4,
+                         ["sd15_unet"] + cut4),
+        "mixed": guided(["sd15_unet"] + cut4, ["sd15_unet"] + cut4),
+        "no_cutouts_vae": guided(["sd15_unet", "sd15_stem"] + cut1,
+                                 ["sd15_unet"] + cut1),
+        "lora_guided": guided(["sd15_unet", "sd15_stem"] + cut4,
+                              ["sd15_unet"] + cut4),
+        "style": [(1, "vision_1"), (1, "style_adapter"),
+                  (STEPS, "sd15_style_unet"), (1, "sd15_decode")],
+        "safety_check": [(1, "vision_safety")],
+    }
+
+
+def _clip_shapes():
+    """(K1 rows, K2a + K2b rows) of the clip phase that phase 3's other
+    rows lack: the vision tower's attention on 1, 4 and 8 images, the
+    style adapter's, the UNet's cross-attention against 85 tokens, the
+    cutout decode's mid block (784 tokens of one 512 head) and its convs
+    at 28² to 224²."""
+    cn_attn, cn_conv = _controlnet_shapes()
+    c5_attn, c5_conv = _c5_shapes()
+    adj_attn, adj_conv = _adjust_shapes()
+    up_attn, up_conv = _upscaler_shapes()
+    seen_attn = {r[1:6] for r in ATTN_SHAPES + MODE_ATTN_SHAPES + cn_attn +
+                 c5_attn + adj_attn + _hinter_shapes() + up_attn}
+    seen_conv = {r[1:6] for r in CONV_SHAPES + MODE_CONV_SHAPES + cn_conv +
+                 c5_conv + adj_conv + up_conv}
+    attns, convs = [], []
+    for call, (a, c) in _clip_calls().items():
+        for dims in a:
+            if dims not in seen_attn:
+                seen_attn.add(dims)
+                attns.append((f"{call}_{dims[0]}_{dims[2]}_{dims[3]}_"
+                              f"d{dims[4]}", *dims))
+        for dims in c:
+            if dims not in seen_conv:
+                seen_conv.add(dims)
+                convs.append((f"{call}_{dims[1]}_{dims[2]}_{dims[3]}",
+                              *dims))
+    return attns, convs
+
+
 # K2a alone at two shapes of a batch-8 call, where its launch differs from
 # batch 1's: (name, B, H=W, C, eps, launches per batch-8 call). The UNet
 # runs 16 rows (8 images x 2 CFG rows), the VAE 8.
@@ -1136,15 +1283,108 @@ def phase_kernels():
         attn_row(*shape, 0, upscaler=True)
     for shape in up_conv:
         conv_row(*shape, 0, upscaler=True)
+    # the clip phase's (the vision tower, the style adapter, the cross-
+    # attention against 85 tokens, the cutout decode), tagged apart
+    clip_attn, clip_conv = _clip_shapes()
+    for shape in clip_attn:
+        attn_row(*shape, 0, clip=True)
+    for shape in clip_conv:
+        conv_row(*shape, 0, clip=True)
     for name, b, hw, c, eps, launches in GN_BATCH8_SHAPES:
         # not in a batch-1 call: no launches of its per-call sums
         record_stats(name, b, hw, c, eps, 0,
                      launches_per_batch8_call=launches)
+    failed.extend(_grad_rows(rand))
     torch.cuda.synchronize()
     if failed:
         raise AssertionError("kernels disagree with their plain versions: "
                              + "; ".join(failed))
     return results
+
+
+# a gradient through the kernels (their recompute Functions) against the
+# plain twins' autograd on the same bf16 inputs, as max abs error over max
+# |plain| of each gradient: the backward is the plain recompute itself, so
+# only the forward's bf16 rounding (BF16_BOUND) reaches the gradients
+GRAD_ROW_BOUND = BF16_BOUND
+
+
+def _event_ms(fn, n: int = 5) -> float:
+    """Milliseconds of one fn() on the card by CUDA events around n calls
+    after 2 warm-ups (no graph capture: fn runs autograd's backward, whose
+    host time is small beside its milliseconds of device work)."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _grad_rows(rand):
+    """One row each for K1 and K2: one forward + backward through the
+    Functions (ops/attention.py's FlashGrad, ops/fused_norm_conv.py's
+    GnSiluConvGrad) against the plain twins' autograd, at the cond stem's
+    UNet shapes (1 row, 64² latents), timed; the gradients held to the
+    twins'. Returns the failures."""
+    import torch
+
+    from gyre_tpu_torch import _build
+    from gyre_tpu_torch.ops import attention as A
+    from gyre_tpu_torch.ops import fused_norm_conv as FC
+
+    failed = []
+
+    def row(kernel, dims, ins, fn, plain, flops):
+        g = rand(*fn(*ins).shape)
+
+        def grads(f):
+            xs = [t.detach().requires_grad_() for t in ins]
+            out = f(*xs)
+            return [out] + list(torch.autograd.grad(out, xs, g))
+
+        _build.reset_launches()
+        got = grads(fn)
+        launched = {k: v for k, v in _build.launches.items() if v}
+        ref = grads(plain)
+        errs = [_errors(a, b)[1] for a, b in zip(got, ref)]
+        line = {"phase": "kernels", "grad": kernel, "dims": dims,
+                "launches_fwd_bwd": launched, "max_abs_err_rel": errs,
+                "bound": GRAD_ROW_BOUND,
+                "ms": _event_ms(lambda: grads(fn)),
+                "plain_ms": _event_ms(lambda: grads(plain)),
+                "bound_ms": _bound(flops, PEAK_BF16_TC, 0)[0]}
+        emit(line)
+        if max(errs) > GRAD_ROW_BOUND:
+            failed.append(f"{kernel} gradient: errors {errs}")
+        return line
+
+    # K1: self-attention at 64² latents, 8 heads of 40 (the forward and
+    # the recompute's 4 products, 2 FLOP a multiply-add)
+    b, h, t, d = 1, 8, 4096, 40
+    q, k, v = (rand(b, t, h * d).view(b, t, h, d) for _ in range(3))
+    row("flash_attention", [b, h, t, t, d], (q, k, v),
+        lambda *x: A.attention(*x, scale=d ** -0.5),
+        lambda *x: A._plain_bthd(*x, d ** -0.5), 6 * 4 * b * h * t * t * d)
+    # K2a + K2b: a 64² resnet conv of 320 channels
+    b, hw, c, co = 1, 64, 320, 320
+    x = (torch.randn((b, hw, hw, c), device="cuda") * 2 + 0.5).to(
+        torch.bfloat16)
+    gs = rand(c, dtype=torch.float32, scale=0.1, shift=1.0)
+    gb = rand(c, dtype=torch.float32, scale=0.1)
+    w = rand(3, 3, c, co, scale=(9 * c) ** -0.5)
+    cb = rand(co, dtype=torch.float32, scale=0.1)
+    row("gn_silu_conv3x3", [b, hw, hw, c, co], (x, gs, gb, w, cb),
+        lambda *a: FC.gn_silu_conv3x3(*a, groups=32, eps=1e-5),
+        lambda *a: FC.gn_silu_conv3x3_plain(*a, groups=32, eps=1e-5),
+        3 * 2 * b * hw * hw * co * 9 * c)
+    return failed
 
 
 def _call(pipe, seeds, kw):
@@ -3781,6 +4021,525 @@ def phase_diffusion_upscalers():
         raise AssertionError("diffusion upscalers: " + "; ".join(failed))
 
 
+# ---------------------------------------------------------- CLIP (C6, C7)
+
+# the clip phase's small request, bf16 on the card against f32 on the CPU
+# over the same weights, noise and crops (the port draws both on the CPU)
+CLIP_CPU_SIZE = 64
+CLIP_CPU_STEPS = 2
+CLIP_CPU_OPTIONS = {"approx_cutouts": 1, "vae_cutouts": 1}
+# the guidance loss's gradient with respect to the latents through the
+# card's kernels against the same gradient through the plain twins (same
+# bf16 weights and input), as ||kernels - twins|| / ||twins||: the two
+# round a forward through the UNet, the VAE decoder and ViT-L/14's 24
+# layers in bf16 at different points, and the twins alone are 0.04-0.17
+# off the f32 gradient (PERF.md, PR 15). One limit for each sigma checked
+# (the ramp's first, the first chunk's end), each set between that
+# sigma's reading through the kernels and its K2-cut control's (PERF.md,
+# PR 15: 0.150 and 0.372 at sigma 14.6, 0.050 and 0.658 at 1.48); a graph
+# with K1 or K2 cut (the controls) must be further off than the limit.
+# Also, the kernels' error against the f32 gradient at most
+# CLIP_GRAD_F32_RATIO times the twins'
+CLIP_GRAD_BOUNDS = (0.22, 0.1)
+CLIP_GRAD_F32_RATIO = 1.5
+# the guided image on the card (bf16) against the CPU's (f32); and the
+# safety scores (cosine minus threshold) of the card's checker against the
+# CPU's, f32 on both sides past the tower
+CLIP_CPU_BOUND = 0.1
+SAFETY_SCORE_BOUND = 2e-2
+
+
+@contextlib.contextmanager
+def _swapped_ops(attention=None, conv=None):
+    """The models' attention and fused GN -> SiLU -> conv entries replaced
+    (the modules the models call through) for the block; None keeps one."""
+    from gyre_tpu_torch.ops import attention as A
+    from gyre_tpu_torch.ops import fused_norm_conv as FC
+
+    saved = A.attention, FC.gn_silu_conv3x3
+    A.attention = attention or saved[0]
+    FC.gn_silu_conv3x3 = conv or saved[1]
+    try:
+        yield
+    finally:
+        A.attention, FC.gn_silu_conv3x3 = saved
+
+
+def _plain_twins():
+    """Both entries on their plain versions, on the card."""
+    from gyre_tpu_torch.ops import attention as A
+    from gyre_tpu_torch.ops import fused_norm_conv as FC
+
+    kernel_attention = A.attention
+
+    def attention(q, k, v, mask=None, scale=None):
+        if mask is not None:
+            return kernel_attention(q, k, v, mask=mask, scale=scale)
+        return A._plain_bthd(q, k, v, scale or q.shape[-1] ** -0.5)
+
+    return _swapped_ops(attention, FC.gn_silu_conv3x3_plain)
+
+
+def _cut_graph(which: str):
+    """The kernels of the models' attention ("attention": K1) or fused
+    convs ("conv": K2a + K2b) launched outside their Functions, under
+    no_grad: the silently cut graph that the kernels' refusal prevents (a
+    control for the gradient check)."""
+    import torch
+
+    from gyre_tpu_torch.ops import attention as A
+    from gyre_tpu_torch.ops import fused_norm_conv as FC
+
+    kernel_attention = A.attention
+
+    def attention(q, k, v, mask=None, scale=None):
+        if mask is not None:
+            return kernel_attention(q, k, v, mask=mask, scale=scale)
+        with torch.no_grad():
+            return A._flash(q, k, v, scale or q.shape[-1] ** -0.5)
+
+    def conv(*args, **kw):
+        with torch.no_grad():
+            return FC._kernels(*args, **kw)
+
+    return _swapped_ops(attention=attention) if which == "attention" \
+        else _swapped_ops(conv=conv)
+
+
+def _guidance_grad(pipe, seed: int, sigma: float):
+    """(the guidance loss's gradient with respect to latents x at
+    ``sigma`` through the cond stem, as the guided step takes it, the
+    loss): the phase-4 prompt, default cutouts, the pipeline's CLIP model
+    and VAE."""
+    import torch
+
+    from gyre_tpu_torch.models import vae as vae_mod
+    from gyre_tpu_torch.pipeline import clip_guidance as cg
+
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn((1, 64, 64, 4), generator=gen) * sigma).cuda()
+    ctx_u, ctx_g = pipe._contexts(REQUEST["prompt"],
+                                  REQUEST["negative_prompt"], 1, True, 0)
+    stem = pipe._denoiser(ctx_u, ctx_g, 7.5, False)
+    vision, vcfg = pipe.clip_vision()
+    target = pipe.clip_text_target(REQUEST["prompt"], 1)
+    ms = pipe.ms
+
+    def decode(z):
+        return vae_mod.decode(ms.vae_params, ms.config.vae,
+                              z.to(pipe.compute_dtype)).float()
+
+    xv = x.requires_grad_()
+    loss = cg.guidance_loss(stem(xv, sigma), [seed], vision, vcfg, target,
+                            cg.ClipGuidanceConfig(guidance_scale=CLIP_SCALE),
+                            vae_decode=decode)
+    (grad,) = torch.autograd.grad(loss, xv)
+    return grad, float(loss)
+
+
+def _twin(pipe, device: str, dtype):
+    """The pipeline's ModelSet and CLIP model in ``dtype`` on ``device``
+    (from bf16 the values widen exactly)."""
+    import dataclasses
+
+    import torch
+
+    from gyre_tpu_torch.pipeline.unified import UnifiedPipeline
+
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v) for v in tree]
+        return tree.to(device, dtype) if torch.is_tensor(tree) else tree
+
+    ms = pipe.ms
+    twin = UnifiedPipeline(dataclasses.replace(
+        ms, unet_params=to(ms.unet_params), vae_params=to(ms.vae_params),
+        text_params=to(ms.text_params), device=torch.device(device)),
+        compute_dtype=dtype)
+    twin._clip.update({k: to(v) for k, v in pipe._clip.items()})
+    return twin
+
+
+def _l2_rel(g, ref) -> float:
+    return float((g - ref).float().norm() / ref.float().norm())
+
+
+def _hot_checker(tower, cfg, emb, flagged, seed: int = 5):
+    """A SafetyChecker over ``tower`` with 17 concepts and 3 special-care
+    embeddings (random unit vectors) but concepts 0.. set to the
+    embeddings of the ``flagged`` images, and every concept threshold
+    halfway between 1 and the largest cosine of another image with a
+    flagged one: those images flag, the others do not."""
+    import torch
+
+    from gyre_tpu_torch.pipeline.safety import SafetyChecker
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def units(n):
+        u = torch.randn((n, cfg.projection_dim), generator=gen)
+        return u / u.norm(dim=-1, keepdim=True)
+
+    emb = emb.float().cpu()
+    concepts = units(17)
+    concepts[:len(flagged)] = emb[list(flagged)]
+    others = [i for i in range(len(emb)) if i not in flagged]
+    near = float((emb[others] @ emb[list(flagged)].T).max())
+    cut = torch.full((17,), (1.0 + near) / 2)
+    return SafetyChecker(tower, cfg, concepts.cuda(), cut.cuda(),
+                         units(3).cuda(), torch.full((3,), 0.5).cuda(),
+                         trained=True)
+
+
+def phase_clip():
+    """CLIP guidance, the style hint and the safety checker on full-width
+    SD1.5 with ViT-L/14 towers from disk (module docstring, 5k)."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    import grpc
+    import numpy as np
+    import torch
+
+    from gyre_tpu_torch import _build, server
+    from gyre_tpu_torch.models import clip, configs, load
+    from gyre_tpu_torch.models import t2i_adapter as t2i
+    from gyre_tpu_torch.models.modelset import random_tree
+    from gyre_tpu_torch.ops import images as I
+    from gyre_tpu_torch.pipeline import schedule as sched
+    from gyre_tpu_torch.pipeline.safety import SafetyChecker
+    from gyre_tpu_torch.services.generate import pb
+
+    t_phase = time.perf_counter()
+    failed = []
+
+    def note(line):
+        emit({"phase": "clip", "at_s": time.perf_counter() - t_phase,
+              **line})
+
+    tmp = tempfile.mkdtemp(prefix="gyre-smoke-clip-")
+    manager = channel = None
+    servings = []
+    expect = {n: {k: v for k, v in _launches(parts, _clip_calls()).items()
+                  if v} for n, parts in _clip_paths().items()}
+    bf = torch.bfloat16
+    try:
+        # --- full-width random weights (drawn on the card) on disk: a
+        # CLIPModel ViT-L/14 (text and vision, projection 768) with its
+        # config.json, TencentARC's style adapter (width 1024, 3 layers, 8
+        # tokens, context 768); the checker's ViT-L tower waits for the
+        # images it is to flag
+        t0 = time.perf_counter()
+        tcfg = dataclasses.replace(configs.CLIP_VIT_L, projection_dim=768)
+        vcfg = clip.CLIP_VISION_L
+        clip_dir = os.path.join(tmp, "clip-vit-large-patch14")
+        os.makedirs(clip_dir)
+        state = load.export_clip_model_state(
+            random_tree(clip.param_specs(tcfg), 0, bf, "cuda"), tcfg,
+            clip.random_vision(vcfg, 1, bf, "cuda"), vcfg)
+        load.write_safetensors(os.path.join(clip_dir, "model.safetensors"),
+                               {k: v.to(bf) for k, v in state.items()})
+        with open(os.path.join(clip_dir, "config.json"), "w") as fh:
+            json.dump(load.clip_model_config(tcfg, vcfg), fh)
+        clip_params = sum(v.numel() for v in state.values())
+        style_path = os.path.join(tmp, "t2iadapter_style_sd14v1.safetensors")
+        style_state = t2i.export_style_state(t2i.random_style(0, bf, "cuda"))
+        load.write_safetensors(style_path, {k: v.to(bf) for k, v in
+                                            style_state.items()})
+        checker_path = os.path.join(tmp, "safety", "model.safetensors")
+        del state
+        note({"checkpoints_s": time.perf_counter() - t0,
+              "clip_params": clip_params,
+              "style_params": sum(v.numel() for v in style_state.values())})
+        manager, serving, tmp2 = _serve_yaml(
+            f"- {{model_id: smoke-clip, model: {clip_dir}}}\n"
+            "- {hintset_id: smoke-style, t2i/style: {aliases: style, "
+            f"model: {style_path}}}}}\n"
+            "- {id: sd15, default: true, model: {preset: sd15, seed: 0}, "
+            'clip: "@smoke-clip", hintset: smoke-style, '
+            f"safety_checker: {checker_path}}}\n",
+            extra=["--batch_max", str(CLIP_SAFETY_BATCH),
+                   "--nsfw_behaviour", "ignore"])
+        shutil.rmtree(tmp2, ignore_errors=True)
+        servings.append(serving)
+        for mode in ("flag", "block"):
+            args = server.parse_args(
+                ["--grpc_port", "0", "--http_port", "0", "--cache_path",
+                 os.path.join(tmp, f"cache-{mode}"), "--nsfw_behaviour",
+                 mode])
+            servings.append(server.serve(args, manager))
+        pipe = manager.dispatch_view("sd15").pipe
+        t0 = time.perf_counter()
+        vision, loaded_cfg = pipe.clip_vision()
+        torch.cuda.synchronize()
+        style = manager.hint_model("style", "sd15")
+        note({"clip_load_s": time.perf_counter() - t0,
+              "clip_model": "real", "vision_cfg": dataclasses.asdict(
+                  loaded_cfg), "text_cfg": dataclasses.asdict(
+                      pipe._clip["text_cfg"]), "style_kind": style["kind"]})
+        if loaded_cfg != vcfg or style["kind"] != "style":
+            failed.append(f"loaded CLIP {loaded_cfg}, style {style['kind']}")
+
+        def measure(name, fn, extra=None):
+            """One run of fn() (after the guided warm-up): launches against
+            expect[name], wall, peak memory, a non-flat finite image."""
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in _build.launches.items() if v}
+            line = {"run": name, "wall_s": wall,
+                    "peak_bytes": torch.cuda.max_memory_allocated(),
+                    "peak_over_start_bytes":
+                        torch.cuda.max_memory_allocated() - base,
+                    "launches": launches, "expected_launches": expect[name],
+                    "std": float(out.float().std()), **(extra or {})}
+            note(line)
+            if launches != expect[name]:
+                failed.append(f"{name}: launches {launches} != "
+                              f"{expect[name]}")
+            if line["std"] < 1.0:
+                failed.append(f"{name}: a flat image")
+            return out
+
+        # --- in-process: the guided request (20 steps, 10-step chunks),
+        # "mixed", no_cutouts "vae", a LoRA-adapted engine, the style hint
+        req = dict(REQUEST, seeds=[81], output_dtype="uint8")
+
+        def guided(target=pipe, **kw):
+            return target(**req, clip_guidance_scale=CLIP_SCALE,
+                          chunk_steps=CLIP_CHUNK,
+                          stop_event=threading.Event(), **kw)
+
+        guided()                                     # warm-up
+        g_img = measure("guided", guided)
+        plain_wall, plain_img = _median_wall(lambda: pipe(**req), 1)
+        # the trace of a guided step and a chunk loss (2 steps, 1-step
+        # chunks: the 20-step request's ~200k device operations take the
+        # profiler minutes to collect)
+        prof = _device_profile(lambda: pipe(
+            **dict(req, steps=2), clip_guidance_scale=CLIP_SCALE,
+            chunk_steps=1, stop_event=threading.Event()))
+        note({"run": "guided_traced_2_steps", **prof,
+              "device_busy_share": prof["device_busy_s"] /
+              prof["traced_wall_s"], "unguided_wall_s": plain_wall,
+              "max_diff_vs_unguided": int((g_img.int() -
+                                           plain_img.int()).abs().max())})
+        if torch.equal(g_img, plain_img):
+            failed.append("guided: the unguided image")
+        measure("mixed", lambda: guided(
+            clip_guidance_options={"guidance_base": "mixed"}))
+        measure("no_cutouts_vae", lambda: guided(clip_guidance_options={
+            "approx_cutouts": 0, "vae_cutouts": 0, "no_cutouts": "vae"}))
+        lora = _adapter_states(configs.SD15)["lora"]
+        view = manager.adapted_pipeline("sd15", loras=[(lora, 0.8, "clip")])
+        l_img = measure("lora_guided", lambda: guided(view))
+        if torch.equal(l_img.cpu(), g_img.cpu()):
+            failed.append("lora_guided: the plain engine's image")
+        del view
+        hint_png = os.path.join(tmp, "style.png")
+        with open(hint_png, "wb") as fh:
+            fh.write(I.encode_png((_hint_image(512, 512, 3)[0] * 255 + 0.5
+                                   ).astype(np.uint8)))
+        with open(hint_png, "rb") as fh:
+            hint_img = _png_pixels(fh.read())[None] / 255.0
+        s_img = measure("style", lambda: pipe(**req, hints=[{
+            "kind": "style", "params": style["params"],
+            "image": hint_img.astype(np.float32), "scale": 1.0}]))
+        if torch.equal(s_img, plain_img):
+            failed.append("style: the unhinted image")
+
+        # --- the guidance gradient at the ramp's first and chunk sigmas
+        # through the kernels, through the plain twins in bf16 and in f32
+        # (the reference), and with the attention or the fused convs cut
+        # (controls)
+        f32_pipe = _twin(pipe, "cuda", torch.float32)
+        ramp = sched.build_sigmas(pipe.schedule, STEPS)
+        for sigma, bound in zip((float(ramp[0]), float(ramp[CLIP_CHUNK])),
+                                CLIP_GRAD_BOUNDS):
+            grads = {"kernels": _guidance_grad(pipe, 81, sigma)}
+            with _plain_twins():
+                grads["twins"] = _guidance_grad(pipe, 81, sigma)
+                grads["f32"] = _guidance_grad(f32_pipe, 81, sigma)
+            for which in ("attention", "conv"):
+                with _cut_graph(which):
+                    grads[f"cut_{which}"] = _guidance_grad(pipe, 81, sigma)
+            ref = grads["f32"][0]
+            vs_f32 = {k: _l2_rel(g, ref) for k, (g, _) in grads.items()
+                      if k != "f32"}
+            err = _l2_rel(grads["kernels"][0], grads["twins"][0])
+            cuts = {k: _l2_rel(grads[k][0], grads["twins"][0])
+                    for k in ("cut_attention", "cut_conv")}
+            note({"check": "grad_vs_plain_twins", "sigma": sigma,
+                  "loss": {k: v[1] for k, v in grads.items()},
+                  "max_abs_grad_f32": float(ref.abs().max()),
+                  "l2_rel_vs_twins": err, "cut_l2_rel_vs_twins": cuts,
+                  "l2_rel_vs_f32": vs_f32, "max_rel_vs_twins": _errors(
+                      grads["kernels"][0], grads["twins"][0])[1],
+                  "bound": bound,
+                  "f32_ratio_bound": CLIP_GRAD_F32_RATIO})
+            if not err <= bound or \
+                    not vs_f32["kernels"] <= CLIP_GRAD_F32_RATIO * \
+                    vs_f32["twins"] or \
+                    not min(cuts.values()) > bound:
+                failed.append(f"gradient at sigma {sigma}: {err} off the "
+                              f"twins', {vs_f32} off f32 (cut: {cuts})")
+            del grads, ref
+        del f32_pipe
+
+        # --- a small guided request, bf16 on the card against f32 on the
+        # CPU (the same noise and crops), with the unguided one beside it
+        twin_pipe = _twin(pipe, "cpu", torch.float32)
+        small = dict(REQUEST, height=CLIP_CPU_SIZE, width=CLIP_CPU_SIZE,
+                     steps=CLIP_CPU_STEPS, seeds=[82])
+        diffs, refs = {}, {}
+        t0 = time.perf_counter()
+        for name, kw in (("unguided", {}), ("guided", {
+                "clip_guidance_scale": CLIP_SCALE,
+                "clip_guidance_options": CLIP_CPU_OPTIONS})):
+            card = pipe(**small, **kw).float().cpu()
+            refs[name] = twin_pipe(**small, **kw)
+            diffs[name] = float((card - refs[name]).abs().max())
+        note({"card_vs_cpu_f32": "guided_small", "size": CLIP_CPU_SIZE,
+              "steps": CLIP_CPU_STEPS, "options": CLIP_CPU_OPTIONS,
+              "max_abs_diff": diffs, "bound": CLIP_CPU_BOUND,
+              "cpu_guided_vs_unguided": float(
+                  (refs["guided"] - refs["unguided"]).abs().max()),
+              "seconds": time.perf_counter() - t0})
+        if not diffs["guided"] <= CLIP_CPU_BOUND:
+            failed.append(f"guided small request: {diffs} off the CPU's")
+        del twin_pipe
+
+        # --- over gRPC: client.py's --guidance and --hint style requests
+        # (the "ignore" server), each against the in-process image
+        ns = _client_builders()
+        channel, generate = _grpc_generate(servings[0].grpc_port)
+        argv = [REQUEST["prompt"], "-n", REQUEST["negative_prompt"],
+                "--host", "localhost:1", "--steps", str(STEPS),
+                "-s", "k_dpmpp_2m", "-S", "81"]
+        for name, a, want in (
+                ("guided", ["--guidance", str(CLIP_SCALE)], g_img),
+                ("style", ["--hint", f"style:{hint_png}:1.0:balanced"],
+                 s_img)):
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            got = generate(_client_request(ns, argv + a))
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in _build.launches.items() if v}
+            d = int(np.abs(got.astype(int) - want[0].cpu().numpy()).max())
+            note({"grpc": name, "wall_s": wall,
+                  "launches": launches, "expected_launches": expect[name],
+                  "max_diff_vs_in_process": d})
+            if launches != expect[name] or d > 1:
+                failed.append(f"gRPC {name}: launches {launches}, {d} off "
+                              "the in-process image")
+
+        # --- the safety checker: the batch-8 request's images as served
+        # (no check), a ViT-L checker made to flag two of them, written in
+        # diffusers' layout and loaded by the manager; its scores on the
+        # card against the same file's in f32 on the CPU; then the request
+        # under "flag" and under "block"
+        req8 = _client_request(ns, argv[:-2] + [
+            "--samples", str(CLIP_SAFETY_BATCH)] + sum(
+                (["-S", str(900 + i)] for i in range(CLIP_SAFETY_BATCH)),
+                []))
+
+        def answers(port):
+            ch = grpc.insecure_channel(f"localhost:{port}")
+            try:
+                arts = _image_artifacts(list(ch.unary_stream(
+                    "/gooseai.GenerationService/Generate",
+                    request_serializer=pb.Request.SerializeToString,
+                    response_deserializer=pb.Answer.FromString)(
+                        req8, timeout=600)))
+            finally:
+                ch.close()
+            return [(_png_pixels(a.binary), a.finish_reason) for a in arts]
+
+        served = answers(servings[0].grpc_port)
+        imgs = np.stack([p for p, _ in served]).astype(np.float32) / 255.0
+        tower = clip.random_vision(vcfg, 2, bf, "cuda")
+        probe = SafetyChecker(tower, vcfg, torch.zeros((1, 768)).cuda(),
+                              torch.ones(1).cuda())
+        hot = _hot_checker(tower, vcfg, probe.embed(imgs),
+                           CLIP_SAFETY_FLAGGED)
+        os.makedirs(os.path.dirname(checker_path))
+        load.write_safetensors(checker_path, {
+            k: v.to(bf) if k.startswith("vision_model") else v
+            for k, v in hot.state_dict().items()})
+        del tower, probe, hot
+        card_chk = manager.safety_checker()
+        _build.reset_launches()
+        scores = card_chk.scores(imgs)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _build.launches.items() if v}
+        cpu_chk = SafetyChecker.load(checker_path, torch.float32, "cpu")
+        ref = cpu_chk.scores(imgs)
+        flags_card = (scores > 0).any(-1).cpu().numpy()
+        flags_cpu = (ref > 0).any(-1).numpy()
+        margin = ref.max(dim=-1).values.abs()
+        clear = (margin > SAFETY_SCORE_BOUND).numpy()
+        score_err = float((scores.cpu() - ref).abs().max())
+        note({"check": "safety_card_vs_cpu_f32",
+              "trained": card_chk.trained, "launches": launches,
+              "expected_launches": expect["safety_check"],
+              "max_abs_score_diff": score_err, "bound": SAFETY_SCORE_BOUND,
+              "flags_card": flags_card.tolist(),
+              "flags_cpu": flags_cpu.tolist(),
+              "min_margin": float(margin.min())})
+        want_flags = [i in CLIP_SAFETY_FLAGGED
+                      for i in range(CLIP_SAFETY_BATCH)]
+        if not card_chk.trained or launches != expect["safety_check"] or \
+                not score_err <= SAFETY_SCORE_BOUND or \
+                (flags_card != flags_cpu)[clear].any() or \
+                flags_card.tolist() != want_flags:
+            failed.append(f"safety: launches {launches}, scores "
+                          f"{score_err}, flags {flags_card.tolist()} / "
+                          f"{flags_cpu.tolist()}")
+        del cpu_chk
+        for mode, serving in zip(("flag", "block"), servings[1:]):
+            t0 = time.perf_counter()
+            got = answers(serving.grpc_port)
+            wall = time.perf_counter() - t0
+            reasons = [r for _, r in got]
+            same = [bool(np.array_equal(p, q)) for (p, _), (q, _) in
+                    zip(got, served)]
+            black = [not p.any() for p, _ in got]
+            note({"grpc": f"safety_{mode}",
+                  "wall_s": wall, "finish_reasons": reasons,
+                  "equal_to_unchecked": same, "black": black})
+            want_reasons = [pb.FILTER if f else pb.NULL for f in want_flags]
+            ok = reasons == want_reasons and all(
+                s for s, f in zip(same, want_flags) if not f or
+                mode == "flag") and (mode == "flag" or all(
+                    b == f for b, f in zip(black, want_flags)))
+            if not ok:
+                failed.append(f"gRPC safety {mode}: {reasons}, equal "
+                              f"{same}, black {black}")
+    except grpc.RpcError as e:
+        failed.append(f"gRPC: {e.code()} {e.details()}")
+    finally:
+        if channel is not None:
+            channel.close()
+        for s in servings:
+            s.stop(0)
+        if manager is not None:
+            manager.dispatcher.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    note({"phase_s": time.perf_counter() - t_phase})
+    if failed:
+        raise AssertionError("clip: " + "; ".join(failed))
+
+
 # ------------------------------------------------------------- SD2, SDXL
 
 
@@ -4775,7 +5534,8 @@ def main() -> int:
     # against a cycle that would keep one)
     for phase in (phase_samplers, phase_modes, phase_adapters, phase_hints,
                   phase_adjust, phase_hinters, phase_upscalers,
-                  phase_diffusion_upscalers, phase_sd2, phase_sdxl,
+                  phase_diffusion_upscalers, phase_clip, phase_sd2,
+                  phase_sdxl,
                   phase_serve, phase_http, phase_weights):
         phase()
         gc.collect()
@@ -4798,12 +5558,12 @@ def main() -> int:
                 "bound_by": max(by, key=by.get)}
 
     rows, mode_rows, cn_rows, c5_rows, adj_rows = [], [], [], [], []
-    hint_rows, up_rows = [], []
+    hint_rows, up_rows, clip_rows = [], [], []
     for name, source, replaces in KERNEL_TABLE:
         rs = [r for r in kernels[name] if not r.get("modes") and
               not r.get("controlnet") and not r.get("c5") and
               not r.get("adjust") and not r.get("hinter") and
-              not r.get("upscaler")]
+              not r.get("upscaler") and not r.get("clip")]
         adj_rs = [r for r in kernels[name] if r.get("adjust")]
         hint_rs = [r for r in kernels[name] if r.get("hinter")]
         up_rs = [r for r in kernels[name] if r.get("upscaler")]
@@ -4831,6 +5591,9 @@ def main() -> int:
                               **summary(hint_rs)})
         up_rows.append({"name": name, "shapes": len(up_rs),
                         **summary(up_rs)})
+        clip_rs = [r for r in kernels[name] if r.get("clip")]
+        clip_rows.append({"name": name, "shapes": len(clip_rs),
+                          **summary(clip_rs)})
     emit({"mode_shapes": mode_rows})
     emit({"controlnet_shapes": cn_rows})
     emit({"c5_shapes": c5_rows})
@@ -4842,6 +5605,10 @@ def main() -> int:
     up_calls = _upscaler_calls()
     emit({"upscaler_paths": {name: _path_sums(kernels, parts, up_calls)
                              for name, parts in _upscaler_paths().items()}})
+    emit({"clip_shapes": clip_rows})
+    clip_calls = _clip_calls()
+    emit({"clip_paths": {name: _path_sums(kernels, parts, clip_calls)
+                         for name, parts in _clip_paths().items()}})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

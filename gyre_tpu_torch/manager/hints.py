@@ -17,6 +17,13 @@ weights (the JAX package's semantics for a model), from a seed that is a
 stable function of its hint type, so every process makes the same one.
 Random weights follow the JAX package's init: a ControlNet's zero convs
 are zero (it adds exactly zero), a T2I adapter's weights are all random.
+
+A T2I entry whose checkpoint holds ``style_embedding`` (TencentARC's style
+adapter: ``t2i/style``, ``coadapter/style``) is built as the style
+adapter, kind "style", which the pipeline runs on the CLIP vision tower's
+tokens. The JAX hint manager builds every T2I entry as a full adapter, so
+such a checkpoint fails to load there, and a style hint never reaches the
+style adapter.
 """
 
 from __future__ import annotations
@@ -59,7 +66,8 @@ def random_seed(hint_type: str) -> int:
 class HintModelSpec:
     hint_type: str                   # canonical primary type
     aliases: tuple = ()              # extra accepted types (canonicalized)
-    kind: str = "controlnet"         # controlnet | t2i
+    kind: str = "controlnet"         # controlnet | t2i (or style, by
+                                     # its checkpoint)
     model: str | None = None         # "@model-id" ref, path, or None
     priority: int = 0
     hintset: str = ""                # owning hintset_id ("" = global)
@@ -173,6 +181,9 @@ class HintsetManager:
         if spec.kind == "t2i":
             from ..models import t2i_adapter
 
+            if state is not None and "style_embedding" in state:
+                return {"params": t2i_adapter.load_style_params(state, **kw),
+                        "kind": "style"}
             if state is not None:
                 params = t2i_adapter.load_params(state, **kw)
             else:

@@ -46,15 +46,24 @@ removal (InSPyReNet), the image-space upscalers (Real-ESRGAN, SwinIR,
 HAT behind pipeline/upscaler.py's tiles) and face restoration
 (CodeFormer, in f32). The diffusion upscalers (``kind: sd-x4`` and
 ``sd-x2``, pipeline/diffusion_upscaler.py) build a ModelSet of their own
-as a generate engine would, from ``model:`` or their preset. The CLIP
-vision tower and its users (the safety checker, CLIP guidance) wait for
-ROADMAP C6 and C7.
+as a generate engine would, from ``model:`` or their preset.
+
+An engine's ``clip:`` (or ``clip_model:``) key names the CLIP model its
+CLIP guidance and style hints use (``clip_model``: a transformers
+CLIPModel, loaded at first use and shared by every engine naming it; its
+activation and head counts from its config.json). The safety checker is a
+``task: safety`` engine's model or an engine's ``safety_checker:`` key
+(``safety_checker``); one that resolves and does not load raises when it
+is first used, where the JAX manager logs a warning and serves without
+it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
+import os
 import threading
 import time
 import weakref
@@ -170,6 +179,8 @@ class EngineManager:
         self._tasks: dict[str, object] = {}
         self._loaded = False
         self._probes: dict[tuple, float] = {}
+        self._clip_models: dict[str, tuple] = {}
+        self._safety = None           # (checker or None,) once looked up
         # per-engine weight provenance for status(): "real" (checkpoint
         # loaded), "random" (random weights: loud, so no engine silently
         # serves untrained weights), "pending" (not built yet)
@@ -324,10 +335,21 @@ class EngineManager:
                 # `graft:` names the engine whose UNet is grafted on top
                 graft_id = spec.params.get("graft") or \
                     (spec.options or {}).get("graft")
-                self._pipelines[engine_id] = UnifiedPipeline(
+                pipe = UnifiedPipeline(
                     self.modelset(engine_id),
                     compute_dtype=self.compute_dtype,
                     graft_ms=self.modelset(graft_id) if graft_id else None)
+                # `clip:` -> the CLIP model of guidance and style hints,
+                # loaded at the first such request (adapted views copy
+                # the source)
+                clip_ref = spec.params.get("clip") or \
+                    spec.params.get("clip_model")
+                if clip_ref is None and isinstance(spec.model, dict):
+                    clip_ref = spec.model.get("clip")
+                if clip_ref:
+                    pipe.clip_source = (
+                        lambda ref=clip_ref: self.clip_model(ref))
+                self._pipelines[engine_id] = pipe
         return self._pipelines[engine_id]
 
     def dispatch_view(self, engine_id: str) -> DispatchView:
@@ -385,7 +407,9 @@ class EngineManager:
         ms = base.ms
         unet_p, text_p = ms.unet_params, list(ms.text_params)
         tokenizer = ms.tokenizer
-        with torch.inference_mode():
+        # no_grad, not inference_mode: a guided request saves these leaves
+        # for its backward, which an inference tensor cannot be
+        with torch.no_grad():
             for d in deltas:
                 unet_p, text_p, n = lora_mod.fold_deltas(unet_p, text_p, d)
                 logger.info("lora applied to %s: %d modules", engine_id, n)
@@ -791,6 +815,85 @@ class EngineManager:
             src, subfolder=entry.get("subfolder"),
             allow_patterns=entry.get("allow_patterns"))
         return read_state_dict(path), entry, path
+
+    def clip_model(self, ref: str):
+        """A transformers CLIPModel (both towers with their joint-space
+        projections) for guidance and style hints, memoised by ``ref``:
+        (text_params, text_cfg, vision_params, vision_cfg). The activation
+        and the head counts, which the weights do not carry, come from the
+        registry entry's ``activation`` or the directory's config.json."""
+        if ref in self._clip_models:
+            return self._clip_models[ref]
+        with self._load_lock:
+            if ref in self._clip_models:
+                return self._clip_models[ref]
+            from ..models.load import load_clip_model_params
+
+            state, entry, path = self.load_model_entry(ref)
+            act = entry.get("activation")
+            t_heads = v_heads = None
+            cfg_file = os.path.join(path, "config.json")
+            if os.path.isdir(path) and os.path.exists(cfg_file):
+                with open(cfg_file) as fh:
+                    cj = json.load(fh)
+                tc = cj.get("text_config") or {}
+                vc = cj.get("vision_config") or {}
+                act = act or tc.get("hidden_act") or cj.get("hidden_act")
+                t_heads = tc.get("num_attention_heads")
+                v_heads = vc.get("num_attention_heads")
+            loaded = load_clip_model_params(
+                state, dtype=self.compute_dtype, device=self.device,
+                activation=act, text_heads=t_heads, vision_heads=v_heads)
+            self._clip_models[ref] = loaded
+            logger.info("clip model %s loaded (text %dL/%dd, vision %dL/%dd"
+                        " -> joint %dd)", ref, loaded[1].num_layers,
+                        loaded[1].hidden_size, loaded[3].num_layers,
+                        loaded[3].hidden_size, loaded[3].projection_dim)
+            return loaded
+
+    def safety_checker(self):
+        """The trained safety checker engines.yaml configures, or None: the
+        model of the first enabled ``task: safety`` engine, or the first
+        enabled engine's ``safety_checker:`` key, resolved through the
+        weight resolver (a directory's model.safetensors or
+        safety_checker/model.safetensors). A reference that does not
+        resolve is logged and gives None, as in the JAX manager; one that
+        resolves and does not load raises."""
+        if self._safety is None:
+            with self._load_lock:
+                if self._safety is None:
+                    self._safety = (self._load_safety_checker(),)
+        return self._safety[0]
+
+    def _load_safety_checker(self):
+        from ..pipeline.safety import SafetyChecker
+
+        ref = None
+        for s in self.specs:
+            if s.task in ("safety", "safety_checker") and s.enabled:
+                ref = s.model
+                break
+            if s.enabled and s.params.get("safety_checker"):
+                ref = s.params["safety_checker"]
+                break
+        checker = None
+        if isinstance(ref, str) and ref:
+            try:
+                path = self.weight_resolver.resolve(ref)
+            except Exception as e:  # noqa: BLE001 - logged, no checker
+                logger.warning("safety checker %s unavailable: %s", ref, e)
+            else:
+                for cand in ("model.safetensors",
+                             os.path.join("safety_checker",
+                                          "model.safetensors")):
+                    if os.path.isdir(path) and \
+                            os.path.exists(os.path.join(path, cand)):
+                        path = os.path.join(path, cand)
+                        break
+                checker = SafetyChecker.load(path, self.compute_dtype,
+                                             self.device)
+                logger.info("safety checker loaded from %s", ref)
+        return checker
 
     # ----------------------------------------------------- warm-up, sizing
 

@@ -85,7 +85,7 @@ def random_controlnet(cfg: UNetConfig, seed: int = 0, dtype=torch.bfloat16,
     from .modelset import random_tree
 
     p = random_tree(param_specs(cfg), seed, dtype, device)
-    with torch.inference_mode():
+    with torch.no_grad():
         for zc in p["zero_convs"] + [p["mid_zero"],
                                      p["cond_embed"]["conv_out"]]:
             zc["w"].zero_()

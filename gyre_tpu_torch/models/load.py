@@ -19,8 +19,14 @@ keys with or without ``text_model.``, ``*.fp16.safetensors`` files.
 Safetensors files are memory-mapped and each leaf goes to the engine's
 device before it is cast, so no host copy of the model is made. The
 ControlNet loader (and its exporter) walks the ControlNet's spec tree the
-same way; the T2I adapter's is in models/t2i_adapter.py. The CLIP vision
-loaders wait for their consumers (ROADMAP C6) and raise.
+same way; the T2I adapter's is in models/t2i_adapter.py.
+
+The CLIP vision loaders (the safety checker's and a CLIPModel's towers)
+derive their configs from the shapes, as the JAX loaders do, and are
+strict (``load_tree_strict``): a key they leave unread raises, except the
+``position_ids`` buffers and CLIPModel's ``logit_scale``, which the
+published files carry and no consumer reads. The JAX package's KeyMapper
+ignores unread keys.
 """
 
 from __future__ import annotations
@@ -169,10 +175,26 @@ def export_tree(params, specs, keys) -> dict[str, torch.Tensor]:
     return out
 
 
-def _not_ported(kind: str, item: str):
-    raise NotImplementedError(
-        f"loading {kind} weights is not ported to gyre_tpu_torch yet "
-        f"(ROADMAP {item})")
+def load_tree_strict(specs, state, keys, name: str, dtype, device,
+                     ignore=()):
+    """load_tree that also raises on a key of ``state`` it leaves unread
+    (a key containing one of the ``ignore`` tokens excepted)."""
+    used = set()
+
+    def recorded(path):
+        cands = keys(path)
+        hit = next((k for k in cands if k in state), None)   # load_tree's
+        if hit is not None:
+            used.add(hit)
+        return cands
+
+    out = load_tree(specs, state, recorded, name, dtype, device)
+    left = sorted(k for k in state if k not in used and
+                  not any(tok in k for tok in ignore))
+    if left:
+        raise KeyError(f"{name} loader left {len(left)} keys unread: "
+                       + ", ".join(left[:8]))
+    return out
 
 
 def controlnet_keys(path) -> tuple[str, ...]:
@@ -211,12 +233,202 @@ def export_controlnet_state(params: dict, cfg: configs.UNetConfig
     return export_tree(params, controlnet.param_specs(cfg), controlnet_keys)
 
 
-def load_clip_vision_params(*_, **__):
-    _not_ported("CLIP vision", "C6")
+# ------------------------------------------------------- CLIP vision, CLIP
+
+# buffers and parameters the published CLIP files carry that no consumer
+# reads
+CLIP_IGNORED = ("position_ids", "logit_scale")
+# head counts by width (not in the weights): ViT-B 768/12, ViT-L 1024/16,
+# ViT-H 1280/16 (d = 80), ViT-g 1408/16 (d = 88), ViT-bigG 1664/16
+VISION_HEADS = {768: 12, 1024: 16, 1280: 16, 1408: 16, 1664: 16}
+# the tower's prefix in the layouts the vision exporter writes (either with
+# visual_projection at the top level): diffusers' safety checker, and
+# CLIPVisionModelWithProjection or a CLIPModel's vision half
+VISION_LAYOUTS = {"safety": "vision_model.vision_model.",
+                  "vision": "vision_model."}
 
 
-def load_clip_model_params(*_, **__):
-    _not_ported("CLIP model", "C6")
+def _vision_keys(pre: str, proj_key: str, pre_ln: str):
+    def keys(path) -> tuple[str, ...]:
+        if path[0] == "visual_projection":
+            return (proj_key,)
+        if path[0] == "patch_embed":
+            return (f"{pre}embeddings.patch_embedding.weight",)
+        if path[0] == "class_embed":
+            return (f"{pre}embeddings.class_embedding",)
+        if path[0] == "position_embedding":
+            return (f"{pre}embeddings.position_embedding.weight",)
+        *mod, leaf = path
+        if mod[0] in ("pre_ln", "post_ln"):
+            name = pre_ln if mod[0] == "pre_ln" else "post_layernorm"
+            return (f"{pre}{name}.{_LEAF[leaf]}",)
+        inner = (f"self_attn.{_CLIP_ATTN[mod[3]]}" if mod[2] == "attn"
+                 else _CLIP_BLOCK[mod[2]])
+        return (f"{pre}encoder.layers.{mod[1]}.{inner}.{_LEAF[leaf]}",)
+
+    return keys
+
+
+def _vision_layout(state: dict):
+    """(tower prefix, visual_projection key or None, pre-LN name) of a
+    state dict holding a CLIP vision tower."""
+    cls_key = next((k for k in state
+                    if k.endswith("embeddings.class_embedding")), None)
+    if cls_key is None:
+        raise KeyError("no CLIP vision tower in state dict")
+    pre = cls_key[:-len("embeddings.class_embedding")]
+    root = pre[:-len("vision_model.")] if pre.endswith("vision_model.") \
+        else pre
+    proj = next((k for k in ("visual_projection.weight",
+                             pre + "visual_projection.weight",
+                             root + "visual_projection.weight")
+                 if k in state), None)
+    # transformers spells the pre-LN "pre_layrnorm"
+    pre_ln = "pre_layrnorm" if f"{pre}pre_layrnorm.weight" in state \
+        else "pre_layernorm"
+    return pre, proj, pre_ln
+
+
+def _vision_config(state: dict, num_heads: int | None = None,
+                           activation: str = "quick_gelu"):
+    """The CLIPVisionConfig of a state dict's tower, from its shapes (the
+    JAX loader's derivation)."""
+    from .clip import CLIPVisionConfig
+
+    pre, proj, _ = _vision_layout(state)
+    hidden = int(state[f"{pre}embeddings.class_embedding"].shape[-1])
+    patch = int(state[f"{pre}embeddings.patch_embedding.weight"].shape[-1])
+    n_pos = int(state[f"{pre}embeddings.position_embedding.weight"
+                      ].shape[0])
+    n_layers = 0
+    while f"{pre}encoder.layers.{n_layers}.layer_norm1.weight" in state:
+        n_layers += 1
+    return CLIPVisionConfig(
+        image_size=int(round((n_pos - 1) ** 0.5)) * patch, patch_size=patch,
+        hidden_size=hidden, num_layers=n_layers,
+        num_heads=num_heads or VISION_HEADS.get(hidden) or
+        max(hidden // 64, 1),
+        intermediate_size=int(state[f"{pre}encoder.layers.0.mlp.fc1.weight"
+                                    ].shape[0]),
+        projection_dim=int(state[proj].shape[0]) if proj else hidden,
+        activation=activation)
+
+
+def load_clip_vision_params(state: dict, dtype=torch.bfloat16,
+                            device="cuda", num_heads: int | None = None,
+                            activation: str = "quick_gelu"):
+    """A CLIP vision tower and its visual_projection from a torch state
+    dict: diffusers' StableDiffusionSafetyChecker (``vision_model.
+    vision_model.*``), CLIPVisionModel(WithProjection) (``vision_model.*``)
+    or bare keys; without a projection, the identity (as the JAX loader).
+    Returns (params on ``device``, CLIPVisionConfig). Strict: a key left
+    unread raises, except CLIP_IGNORED's."""
+    from .clip import vision_specs
+
+    cfg = _vision_config(state, num_heads, activation)
+    pre, proj, pre_ln = _vision_layout(state)
+    if proj is None:
+        proj = "visual_projection.weight"
+        state = dict(state)
+        state[proj] = torch.eye(cfg.hidden_size)
+    return load_tree_strict(vision_specs(cfg), state,
+                            _vision_keys(pre, proj, pre_ln), "clip vision",
+                            dtype, device, CLIP_IGNORED), cfg
+
+
+def export_clip_vision_state(params, cfg, layout: str = "vision"
+                             ) -> dict[str, torch.Tensor]:
+    """Inverse of load_clip_vision_params in one of VISION_LAYOUTS."""
+    from .clip import vision_specs
+
+    return export_tree(params, vision_specs(cfg), _vision_keys(
+        VISION_LAYOUTS[layout], "visual_projection.weight", "pre_layrnorm"))
+
+
+def _text_model_keys(path) -> tuple[str, ...]:
+    return clip_keys(path)[:1]            # CLIPModel: text_model.* only
+
+
+def load_clip_model_params(state: dict, dtype=torch.bfloat16,
+                           device="cuda", activation: str | None = None,
+                           text_heads: int | None = None,
+                           vision_heads: int | None = None):
+    """A transformers CLIPModel state dict (both towers and their
+    joint-space projections) -> (text_params, text_cfg, vision_params,
+    vision_cfg), both configs derived from the shapes as the JAX loader
+    derives them; the activation and the head counts, which the weights
+    do not carry, from the caller (the manager reads them from
+    config.json), else quick_gelu and 64-wide text heads. Strict, as
+    load_clip_vision_params."""
+    from . import clip as clip_mod
+
+    tpre = "text_model."
+    tok_key = f"{tpre}embeddings.token_embedding.weight"
+    if tok_key not in state:
+        raise KeyError("no CLIP text tower (text_model.*) in state dict")
+    vocab, hidden = (int(n) for n in state[tok_key].shape)
+    n_layers = 0
+    while f"{tpre}encoder.layers.{n_layers}.layer_norm1.weight" in state:
+        n_layers += 1
+    act = activation or "quick_gelu"
+    text_cfg = configs.CLIPTextConfig(
+        vocab_size=vocab, hidden_size=hidden, num_layers=n_layers,
+        num_heads=text_heads or max(hidden // 64, 1),
+        intermediate_size=int(state[f"{tpre}encoder.layers.0.mlp.fc1.weight"
+                                    ].shape[0]),
+        max_position_embeddings=int(
+            state[f"{tpre}embeddings.position_embedding.weight"].shape[0]),
+        projection_dim=int(state["text_projection.weight"].shape[0])
+        if "text_projection.weight" in state else 0,
+        activation=act, eos_token_id=vocab - 1)
+    text_state = {k: v for k, v in state.items()
+                  if k.startswith(tpre) or k == "text_projection.weight"}
+    text_params = load_tree_strict(
+        clip_mod.param_specs(text_cfg), text_state, _text_model_keys,
+        "clip text", dtype, device, CLIP_IGNORED)
+    vision_params, vision_cfg = load_clip_vision_params(
+        {k: v for k, v in state.items() if k not in text_state}, dtype,
+        device, vision_heads, act)
+    return text_params, text_cfg, vision_params, vision_cfg
+
+
+def export_clip_model_state(text_params, text_cfg, vision_params,
+                            vision_cfg) -> dict[str, torch.Tensor]:
+    """Inverse of load_clip_model_params, in CLIPModel's layout with its
+    logit_scale (log(1 / 0.07), as CLIP initialises it)."""
+    from . import clip as clip_mod
+
+    out = export_tree(text_params, clip_mod.param_specs(text_cfg),
+                      _text_model_keys)
+    out.update(export_clip_vision_state(vision_params, vision_cfg, "vision"))
+    out["logit_scale"] = torch.tensor(2.6592600345611572)
+    return out
+
+
+def clip_model_config(text_cfg, vision_cfg) -> dict:
+    """A transformers CLIPModel config.json of the two towers: what the
+    manager reads the activation and head counts from."""
+    return {
+        "architectures": ["CLIPModel"], "model_type": "clip",
+        "projection_dim": vision_cfg.projection_dim,
+        "text_config": {
+            "hidden_size": text_cfg.hidden_size,
+            "intermediate_size": text_cfg.intermediate_size,
+            "num_attention_heads": text_cfg.num_heads,
+            "num_hidden_layers": text_cfg.num_layers,
+            "max_position_embeddings": text_cfg.max_position_embeddings,
+            "vocab_size": text_cfg.vocab_size,
+            "projection_dim": text_cfg.projection_dim,
+            "hidden_act": text_cfg.activation},
+        "vision_config": {
+            "hidden_size": vision_cfg.hidden_size,
+            "intermediate_size": vision_cfg.intermediate_size,
+            "num_attention_heads": vision_cfg.num_heads,
+            "num_hidden_layers": vision_cfg.num_layers,
+            "image_size": vision_cfg.image_size,
+            "patch_size": vision_cfg.patch_size,
+            "projection_dim": vision_cfg.projection_dim,
+            "hidden_act": vision_cfg.activation}}
 
 
 # ------------------------------------------------------------------ files

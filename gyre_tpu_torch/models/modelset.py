@@ -115,7 +115,7 @@ def random_tree(specs, seed: int, dtype, device):
     makes them, from its own generator seeded with ``seed``."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
-    with torch.inference_mode():
+    with torch.no_grad():
         return _random_tree(specs, gen, dtype, device)
 
 
@@ -133,7 +133,7 @@ def random_modelset(cfg: configs.ModelSetConfig, seed: int = 0,
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
     unet_s, vae_s, text_s = model_specs(cfg)
-    with torch.inference_mode():
+    with torch.no_grad():
         unet_p = _random_tree(unet_s, gen, dtype, device)
         vae_p = _random_tree(vae_s, gen, dtype, device)
         text_p = [_random_tree(s, gen, dtype, device) for s in text_s]
@@ -265,6 +265,24 @@ def t2i_adapter_from_jax(params, *, dtype=torch.float32, device="cuda"):
     out = _from_jax(specs, tree, "t2i_adapter", dtype, torch.device(device))
     out["downscale"] = ds
     return out
+
+
+def clip_vision_from_jax(params, cfg, *, dtype=torch.float32,
+                        device="cuda"):
+    """The JAX package's CLIP vision tower params (``vision_init`` /
+    ``load_clip_vision_params``, numpy) at ``cfg`` -> the port's, as strict
+    as from_jax_params."""
+    return _from_jax(clip_mod.vision_specs(cfg), params, "clip vision",
+                     dtype, torch.device(device))
+
+
+def style_from_jax(params, *, dtype=torch.float32, device="cuda"):
+    """The JAX package's style-adapter params (``style_init`` /
+    ``load_style_params``) -> the port's."""
+    from . import t2i_adapter
+
+    return _from_jax(t2i_adapter.style_specs(**t2i_adapter.style_dims(
+        params)), params, "style adapter", dtype, torch.device(device))
 
 
 def from_jax_params(unet_params, vae_params, text_params,

@@ -5,9 +5,13 @@ Counterpart of gyre_tpu/models/t2i_adapter.py (full and light channel
 ladders; the same params tree, a level's ``proj`` present only where the
 channels change, conv weights OIHW). It is x- and t-independent, so it runs
 once a request, outside the step loop; it is plain convs, ReLU and 2x2
-means, no kernel of the port, as in the JAX package. The style adapter
-needs the CLIP vision tower, which is not ported yet (ROADMAP C6): its
-functions raise.
+means, no kernel of the port, as in the JAX package.
+
+The style adapter (TencentARC's StyleAdapter) is a transformer over the
+CLIP vision tower's tokens and its own learned style tokens; its attention
+runs K1 on the card ([B, 257 + 8, 8, 128] at its published widths) and it
+returns the style tokens projected to the UNet's context width, which the
+pipeline appends to the conditional context.
 """
 
 from __future__ import annotations
@@ -166,10 +170,102 @@ def coadapter_fuse(feature_sets: list, weights: list | None = None) -> list:
 # ------------------------------------------------------------ style adapter
 
 
-def _style_unported(*_, **__):
-    raise NotImplementedError(
-        "the style adapter needs the CLIP vision tower, not ported to "
-        "gyre_tpu_torch yet (ROADMAP C6)")
+def style_specs(context_dim: int = 768, vision_dim: int = 1024,
+                n_tokens: int = 8, n_layers: int = 3) -> Params:
+    """The style adapter's spec tree, the published checkpoint's widths by
+    default: learned style tokens, a width-space transformer (fused qkv,
+    QuickGELU MLP), ln_pre / ln_post and a raw [width, context] projection
+    (used as ``tokens @ proj``, as the JAX package and the checkpoint hold
+    it)."""
+    w = vision_dim
+    std = w ** -0.5
+    return {
+        "style_embedding": L.Spec("normal", (1, n_tokens, w), std),
+        "ln_pre": L.norm_spec(w),
+        "ln_post": L.norm_spec(w),
+        "proj": L.Spec("normal", (w, context_dim), std),
+        "blocks": [{"ln1": L.norm_spec(w),
+                    "qkv": L.linear_spec(w, 3 * w),
+                    "out": L.linear_spec(w, w),
+                    "ln2": L.norm_spec(w),
+                    "fc1": L.linear_spec(w, 4 * w),
+                    "fc2": L.linear_spec(4 * w, w)}
+                   for _ in range(n_layers)],
+    }
 
 
-style_init = style_apply = load_style_params = _style_unported
+def style_dims(tree, *, state: bool = False) -> dict:
+    """style_specs' arguments of a params tree or a checkpoint."""
+    n = len(tree["blocks"]) if not state else 0
+    while state and f"transformer_layes.{n}.ln_1.weight" in tree:
+        n += 1
+    emb, proj = tree["style_embedding"], tree["proj"]
+    return dict(context_dim=int(proj.shape[1]), vision_dim=int(emb.shape[2]),
+                n_tokens=int(emb.shape[1]), n_layers=n)
+
+
+def random_style(seed: int = 0, dtype=torch.bfloat16, device="cuda",
+                 **dims) -> Params:
+    """Random style-adapter weights (style_specs' widths by ``dims``) as
+    models/modelset.py makes them."""
+    from .modelset import random_tree
+
+    return random_tree(style_specs(**dims), seed, dtype, device)
+
+
+def style_apply(params: Params, vision_tokens, heads: int = 8):
+    """vision_tokens [B, N, width] -> style tokens [B, n_tokens, context],
+    in the adapter's dtype."""
+    emb = params["style_embedding"]
+    b, n_tok = vision_tokens.shape[0], emb.shape[1]
+    x = torch.cat([vision_tokens.to(emb.dtype),
+                   emb.expand(b, -1, -1)], dim=1)
+    x = L.layer_norm(params["ln_pre"], x)
+    d = x.shape[-1]
+    hd = d // heads
+    for blk in params["blocks"]:
+        h = L.layer_norm(blk["ln1"], x)
+        q, k, v = (t.reshape(b, -1, heads, hd)
+                   for t in L.linear(blk["qkv"], h).chunk(3, dim=-1))
+        o = L.attention(q, k, v).reshape(b, -1, d)
+        x = x + L.linear(blk["out"], o)
+        h = L.layer_norm(blk["ln2"], x)
+        x = x + L.linear(blk["fc2"], L.quick_gelu(L.linear(blk["fc1"], h)))
+    style = L.layer_norm(params["ln_post"], x[:, -n_tok:])
+    return style @ params["proj"].to(style.dtype)
+
+
+def _style_keys(path) -> tuple[str, ...]:
+    """A style-adapter leaf's key in TencentARC's checkpoint
+    (``transformer_layes`` as the published file spells it)."""
+    if path[0] in ("style_embedding", "proj"):
+        return (path[0],)
+    *mod, leaf = path
+    if mod[0] in ("ln_pre", "ln_post"):
+        return (f"{mod[0]}.{'weight' if leaf == 'scale' else 'bias'}",)
+    pre = f"transformer_layes.{mod[1]}"
+    if mod[2] == "qkv":
+        return (f"{pre}.attn.in_proj_{'weight' if leaf == 'w' else 'bias'}",)
+    name = {"ln1": "ln_1", "ln2": "ln_2", "out": "attn.out_proj",
+            "fc1": "mlp.c_fc", "fc2": "mlp.c_proj"}[mod[2]]
+    return (f"{pre}.{name}.{'bias' if leaf in ('b', 'bias') else 'weight'}",)
+
+
+def load_style_params(state: dict, dtype=torch.bfloat16,
+                      device="cuda") -> Params:
+    """TencentARC style-adapter checkpoint (``t2iadapter_style_*``,
+    ``coadapter-style``) -> params; strict: a missing or misshapen key
+    raises, and so does a key left unread."""
+    from .load import load_tree_strict
+
+    return load_tree_strict(style_specs(**style_dims(state, state=True)),
+                            state, _style_keys, "style adapter", dtype,
+                            device)
+
+
+def export_style_state(params: Params) -> dict:
+    """Inverse of load_style_params: {key: f32 CPU tensor}."""
+    from .load import export_tree
+
+    return export_tree(params, style_specs(**style_dims(params)),
+                       _style_keys)

@@ -19,6 +19,13 @@ plain version for CPU tensors and its kernel for CUDA tensors: x and w
 contiguous bf16 with C and Co multiples of 8, the GroupNorm scale and bias
 and the conv bias contiguous f32 (the models keep these leaves in f32, so
 no call casts them); anything else raises.
+
+Gradients: neither kernel has a backward kernel, as the Pallas kernel has
+none. When grad mode is on and an input requires grad, ``gn_silu_conv3x3``
+runs K2a then K2b inside ``GnSiluConvGrad``, whose backward recomputes
+through ``gn_silu_conv3x3_plain`` and takes its VJP (the JAX package's
+custom_vjp over the whole fused op). A direct launch of K2a or K2b on a
+tensor that requires grad raises (ops/attention.py's ``refuse_graph``).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from .attention import refuse_graph, wants_grad
 
 # K2a's launch (csrc/gn_stats.cu), a rule fit to kernel_sweep.py's table of
 # every (slabs, cluster, threads) at chip_smoke.py's shapes on the H100
@@ -130,6 +138,7 @@ def gn_affine(x, gn_scale, gn_bias, groups: int, eps: float):
     On the card a and b are views of one [2,B,C] tensor."""
     if x.device.type == "cpu":
         return gn_affine_plain(x, gn_scale, gn_bias, groups, eps)
+    refuse_graph("gn_affine", x, gn_scale, gn_bias)
     _build.require(x, "gn_affine x", torch.bfloat16)
     if x.dim() != 4:
         raise ValueError(f"gn_affine x must be [B,H,W,C], got "
@@ -154,6 +163,7 @@ def affine_silu_conv3x3(x, a, b, w, conv_bias):
     """K2b: silu(x*a+b) -> 3x3 SAME conv (HWIO w) + bias, NHWC."""
     if x.device.type == "cpu":
         return affine_silu_conv3x3_plain(x, a, b, w, conv_bias)
+    refuse_graph("affine_silu_conv3x3", x, a, b, w, conv_bias)
     _build.require(x, "conv x", torch.bfloat16)
     if x.dim() != 4:
         raise ValueError(f"conv x must be [B,H,W,C], got {tuple(x.shape)}")
@@ -182,13 +192,51 @@ def affine_silu_conv3x3(x, a, b, w, conv_bias):
     return out
 
 
+def _kernels(x, gn_scale, gn_bias, w, conv_bias, *, groups: int, eps: float):
+    a, b = gn_affine(x, gn_scale, gn_bias, groups, eps)
+    return affine_silu_conv3x3(x, a, b, w, conv_bias)
+
+
+class GnSiluConvGrad(torch.autograd.Function):
+    """The fused op with the JAX package's recompute backward: the forward
+    is ``forward(x, gn_scale, gn_bias, w, conv_bias, groups=, eps=)`` (K2a
+    then K2b; the tests give it the plain chain on the CPU, so that the
+    backward runs there), the backward the VJP of
+    ``gn_silu_conv3x3_plain`` recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, gn_scale, gn_bias, w, conv_bias, groups, eps,
+                forward):
+        ctx.groups, ctx.eps = groups, eps
+        ctx.save_for_backward(x, gn_scale, gn_bias, w, conv_bias)
+        return forward(x, gn_scale, gn_bias, w, conv_bias, groups=groups,
+                       eps=eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        needs = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, needs)]
+            out = gn_silu_conv3x3_plain(*ins, groups=ctx.groups,
+                                        eps=ctx.eps)
+            got = iter(torch.autograd.grad(
+                out, [t for t, n in zip(ins, needs) if n], grad))
+        return (*(next(got) if n else None for n in needs), None, None,
+                None)
+
+
 def gn_silu_conv3x3(x, gn_scale, gn_bias, w, conv_bias, *, groups: int = 32,
                     eps: float = 1e-6):
     """silu(group_norm(x)*scale+bias) -> 3x3 stride-1 SAME conv.
 
-    CUDA tensors: K2a then K2b. CPU tensors: the plain chain."""
+    CUDA tensors: K2a then K2b, under GnSiluConvGrad when a gradient is
+    wanted. CPU tensors: the plain chain."""
     if x.device.type == "cpu":
         return gn_silu_conv3x3_plain(x, gn_scale, gn_bias, w, conv_bias,
                                      groups=groups, eps=eps)
-    a, b = gn_affine(x, gn_scale, gn_bias, groups, eps)
-    return affine_silu_conv3x3(x, a, b, w, conv_bias)
+    if wants_grad(x, gn_scale, gn_bias, w, conv_bias):
+        return GnSiluConvGrad.apply(x, gn_scale, gn_bias, w, conv_bias,
+                                    groups, eps, _kernels)
+    return _kernels(x, gn_scale, gn_bias, w, conv_bias, groups=groups,
+                    eps=eps)

@@ -38,8 +38,10 @@ dpm_adaptive's chunks bound its solver iterations, and its progress counts
 against ceil(128 / chunk) chunks until the solver reaches sigma_min. The
 hires fix runs unchunked, as in the JAX package.
 
-Device work runs under ``torch.inference_mode()`` in the helpers below;
-the generator yields outside them. ``SD_DEBUG_LATENTS`` dumps the latents
+Device work runs under ``torch.no_grad()`` in the helpers below (not
+inference mode: a CLIP-guided step saves the request's tensors, and the
+weights it shares with every request, for its backward); the generator
+yields outside them. ``SD_DEBUG_LATENTS`` dumps the latents
 at init (modes with an init image), after each chunk and at the end
 (utils/latent_debug.py).
 
@@ -51,8 +53,19 @@ priority maps, as in the JAX package, to ``soft_injection`` (logspace
 weights over the residuals or levels) and ``cfg_only`` (the ControlNet
 runs on the guided CFG half only, the unguided half gets zeros). Under the
 hires fix the low-resolution pass gets the hint at its own size, where the
-JAX package fails on the shapes (ROADMAP queue 3). Not ported yet, and
-raising when asked for: style hints and CLIP guidance (ROADMAP C6).
+JAX package fails on the shapes (ROADMAP queue 3). A style hint runs the
+CLIP vision tower and the style adapter once a request and appends its
+tokens to the conditional context (zeros to the unconditional one).
+
+CLIP guidance (``clip_guidance_scale``, pipeline/clip_guidance.py) steers
+each step by the gradient of a CLIP loss through the denoiser, against the
+engine's ``clip:`` model (``clip_source``, set by the manager) or, without
+one, a random vision tower with a warning. Under "guided" the gradient
+goes through a cond-only stem of the UNet, under "mixed" through the
+CFG-combined prediction. A chunked guided request evaluates the unguided
+loss after each chunk but the last and stops guiding once the loss is
+flat (the JAX package's window rule); dpm_adaptive runs unchunked when
+guided, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -72,6 +85,7 @@ from ..ops import images as I
 from ..ops.resize import resize
 from ..utils import rng
 from ..utils.latent_debug import log_latents
+from . import clip_guidance as cg
 from . import denoiser, modes, prompts, samplers
 from . import schedule as sched
 
@@ -133,10 +147,6 @@ class _HintStack:
         self.ucfg, self.cdt, self.guided = ucfg, cdt, guided
         self.hints = []
         for hint in hints:
-            if hint.get("kind") == "style":
-                raise NotImplementedError(
-                    "style hints need the CLIP vision tower, not ported to "
-                    "gyre_tpu_torch yet (ROADMAP C6)")
             img = hint["image"]
             if not torch.is_tensor(img):
                 img = torch.from_numpy(np.array(img, dtype=np.float32))
@@ -159,7 +169,7 @@ class _HintStack:
         self._features = {}
         self.features(lh, lw)
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def features(self, lh: int, lw: int):
         """(controlnets, adapter states, cfg_only adapter states) at latent
         size (lh, lw)."""
@@ -263,6 +273,40 @@ class _HintStack:
         return hinted
 
 
+class _ClipGuide:
+    """A request's CLIP guidance: ``denoise`` is the steered denoiser, the
+    unguided one once the flat-loss stop has tripped; ``chunk_loss``
+    records the unguided loss after a chunk and checks the stop (one loss
+    a chunk, over a window of about gradient_length steps' worth of
+    chunks)."""
+
+    def __init__(self, ccfg, dn, vision, vcfg, target, keys, stem,
+                 vae_decode):
+        self.ccfg, self.keys = ccfg, keys
+        self.vision, self.vcfg, self.target = vision, vcfg, target
+        self.vae_decode = vae_decode
+        self.steer = cg.make_clip_guided_denoiser(
+            dn, vision, vcfg, target, keys, config=ccfg, cond_stem=stem,
+            vae_decode=vae_decode)
+        self.dn, self.flat, self.losses = dn, False, []
+
+    def denoise(self, x, sigma: float):
+        return (self.dn if self.flat else self.steer)(x, sigma)
+
+    @torch.no_grad()
+    def chunk_loss(self, x, sigma_end: float, chunk: int):
+        if self.flat:
+            return
+        x0 = self.dn(x, max(sigma_end, 1e-4))
+        loss = cg.guidance_loss(x0, self.keys, self.vision, self.vcfg,
+                                     self.target, self.ccfg,
+                                     vae_decode=self.vae_decode)
+        self.losses.append(float(loss) / len(self.keys))
+        window = max(2, -(-self.ccfg.gradient_length // max(chunk, 1)) + 1)
+        self.flat = cg.flatloss_check(self.losses, self.ccfg,
+                                           samples_per_window=window)
+
+
 class UnifiedPipeline:
     """Bundles one engine's models and serves generation requests.
     ``graft_ms``: a second engine's ModelSet, grafted on top of this one's
@@ -284,6 +328,11 @@ class UnifiedPipeline:
         self.graft_ms = graft_ms
         self._graft_pipe = (UnifiedPipeline(graft_ms, compute_dtype)
                             if graft_ms is not None else None)
+        # set by the manager for an engine with a `clip:` model: a callable
+        # returning (text_params, text_cfg, vision_params, vision_cfg)
+        self.clip_source = None
+        # the CLIP towers once loaded; one dict, shared by derived views
+        self._clip: dict = {}
 
     def derive(self, new_modelset) -> "UnifiedPipeline":
         """A view of this pipeline over other weights of the same
@@ -297,6 +346,81 @@ class UnifiedPipeline:
     @property
     def schedule(self) -> sched.DiffusionSchedule:
         return self.ms.schedule
+
+    # ---------------------------------------------------------------- CLIP
+
+    def clip_vision(self):
+        """(params, CLIPVisionConfig) of the vision tower for guidance and
+        style hints: the engine's CLIP model (``clip_source``), loaded at
+        first use, or else a random tower (logged): CLIP_VISION_L, or
+        CLIP_VISION_TEST below 768 wide, projecting to the width of the
+        engine's first text tower, in the compute dtype. The towers are
+        kept for every later request, guided ones too, so they are made
+        outside inference mode whatever the caller's grad mode."""
+        c = self._clip
+        if "vision" in c:
+            return c["vision"], c["vision_cfg"]
+        with torch.inference_mode(False), torch.no_grad():
+            if self.clip_source is not None:
+                (c["text"], c["text_cfg"], c["vision"],
+                 c["vision_cfg"]) = self.clip_source()
+            else:
+                import dataclasses
+                import logging
+
+                logging.getLogger(__name__).warning(
+                    "engine %s has no `clip:` model configured: CLIP "
+                    "guidance and style hints use a RANDOM vision tower. "
+                    "Configure a clip model (e.g. clip: \"@clip-common\").",
+                    self.ms.id)
+                text_dim = self.ms.config.text_encoders[0].hidden_size
+                base = (clip_mod.CLIP_VISION_L if text_dim >= 768
+                        else clip_mod.CLIP_VISION_TEST)
+                cfg = dataclasses.replace(base, projection_dim=text_dim)
+                c["vision"] = clip_mod.random_vision(
+                    cfg, 0, self.compute_dtype, self.device)
+                c["vision_cfg"] = cfg
+        return c["vision"], c["vision_cfg"]
+
+    @torch.no_grad()
+    def clip_text_target(self, text: str, batch: int):
+        """[batch, proj] unit text embedding, the guidance's target: the
+        CLIP model's projected pooled text or, without one, the engine's
+        first text tower's pooled output; the prompt's first chunk."""
+        self.clip_vision()
+        ids = prompts.tokenize_weighted(
+            self.ms.tokenizer, prompts.WeightedPrompt.parse(text or ""))[0]
+        if "text" in self._clip:
+            params, cfg = self._clip["text"], self._clip["text_cfg"]
+        else:
+            params, cfg = self.ms.text_params[0], \
+                self.ms.config.text_encoders[0]
+        pooled = clip_mod.apply(params, cfg, torch.from_numpy(ids[:1]).to(
+            self.device))["pooled"].float()
+        pooled = pooled / torch.linalg.vector_norm(pooled, dim=-1,
+                                                   keepdim=True)
+        return pooled.expand(batch, -1)
+
+    @torch.no_grad()
+    def _style_contexts(self, hints, batch: int, ctx_u, ctx_g):
+        """(ctx_u, ctx_g) with each style hint's tokens appended to the
+        conditional context and zeros to the unconditional one: the hint
+        image resized to the vision tower's size (bilinear), through the
+        tower and the style adapter, times the hint's scale."""
+        vision, vcfg = self.clip_vision()
+        size = vcfg.image_size
+        for hint in hints:
+            img = self._image(hint["image"])
+            img = resize(img.expand(batch, *img.shape[1:]), (size, size),
+                         "bilinear")
+            tokens = clip_mod.vision_apply(
+                vision, vcfg, clip_mod.preprocess_image(img))["tokens"]
+            style = t2i_mod.style_apply(hint["params"], tokens) * float(
+                hint.get("scale", 1.0))
+            ctx_g = torch.cat([ctx_g, style.to(ctx_g.dtype)], dim=1)
+            ctx_u = torch.cat([ctx_u, torch.zeros_like(style).to(
+                ctx_u.dtype)], dim=1)
+        return ctx_u, ctx_g
 
     # ------------------------------------------------------------ prompts
 
@@ -343,7 +467,7 @@ class UnifiedPipeline:
             torch.from_numpy(ids).to(self.device),
             dtype=self.compute_dtype)["pooled"]
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def _contexts(self, prompt, negative_prompt, batch: int, guided: bool,
                   clip_layer: int):
         """(ctx_uncond, ctx_cond), each [B, T, D]. Prompts may be
@@ -358,7 +482,7 @@ class UnifiedPipeline:
         ctx_u = enc[[row[t] for t in neg]] if guided else ctx_g
         return ctx_u, ctx_g
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def _added_cond(self, prompt, negative_prompt, batch: int, guided: bool,
                     height: int, width: int):
         """SDXL's "text_time" conditioning of each CFG half, (added_u,
@@ -394,7 +518,7 @@ class UnifiedPipeline:
         added_g = half(pos, ids_g)
         return (half(neg, ids_u) if guided else added_g), added_g
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def _graft_contexts(self, prompt, negative_prompt, batch: int,
                         guided: bool):
         """The grafted model's (ctx_uncond, ctx_cond): its own towers on
@@ -409,7 +533,7 @@ class UnifiedPipeline:
 
     # ---------------------------------------------------------------- VAE
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def vae_encode(self, images, keys):
         """images [B,H,W,3] in [0,1] -> scaled latents [B,H/8,W/8,4] f32,
         the posterior sampled with each key's "vae" noise."""
@@ -421,7 +545,7 @@ class UnifiedPipeline:
         z = vae_mod.sample_posterior(mean, logvar, noise.to(mean.dtype))
         return (z * cfg.scaling_factor).float()
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def vae_decode(self, latents):
         """scaled latents [B,h,w,4] -> images [B,8h,8w,3] f32 in [0,1];
         past VAE_TILE_THRESHOLD latents in overlapping tiles."""
@@ -504,20 +628,51 @@ class UnifiedPipeline:
             model, self.schedule,
             prediction_type=ms.schedule.prediction_type)
 
-    @torch.inference_mode()
+    def _clip_guide(self, dn, scale, cutouts, options, prompt, keys,
+                    guided, ctx_u, ctx_g, gs_arg, tiling_xy, wrap_model,
+                    hint_stack, added, tome_ratio):
+        """The request's _ClipGuide over denoiser ``dn``: its config (the
+        legacy ``cutouts`` count split between the two cutout families
+        unless the options name one), the vision tower, the text target
+        of the first prompt, the VAE decoder for VAE cutouts and, under
+        "guided" CFG, the cond-only stem of the engine's UNet."""
+        copts = dict(options or {})
+        if not {"approx_cutouts", "vae_cutouts", "no_cutouts"} & set(copts):
+            copts["approx_cutouts"] = int(cutouts) // 2
+            copts["vae_cutouts"] = int(cutouts) - int(cutouts) // 2
+        ccfg = cg.ClipGuidanceConfig(guidance_scale=float(scale), **copts)
+        vision, vcfg = self.clip_vision()
+        first = prompt[0] if isinstance(prompt, (list, tuple)) else prompt
+        target = self.clip_text_target(first or "", len(keys))
+        vae_decode = None
+        if ccfg.vae_cutouts or ccfg.no_cutouts == "vae":
+            ms, cdt = self.ms, self.compute_dtype
+
+            def vae_decode(z):
+                return vae_mod.decode(ms.vae_params, ms.config.vae,
+                                      z.to(cdt)).float()
+        stem = None
+        if guided and ccfg.guidance_base == "guided":
+            stem = self._denoiser(ctx_u, ctx_g, gs_arg, False, tiling_xy,
+                                  wrap_model, hints=hint_stack, added=added,
+                                  tome_ratio=tome_ratio)
+        return _ClipGuide(ccfg, dn, vision, vcfg, target, keys, stem,
+                          vae_decode)
+
+    @torch.no_grad()
     def _initial(self, seeds, lh: int, lw: int, sigma_max: float):
         shape = (lh, lw, self.ms.config.unet.out_channels)
         return modes.txt2img_initial(seeds, shape, sigma_max, self.device,
                                      natural=self.ms.config.sample_size)
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def _run_steps(self, sampler, dn, x, sigmas, noise_fn, params, start,
                    steps, carry):
         return samplers.sample(sampler, dn, x, sigmas, noise_fn, params,
                                start=start, steps=steps, carry=carry,
                                return_carry=True, first=start == 0)
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def _to_uint8(self, images):
         return (images * 255.0 + 0.5).clamp(0, 255).to(torch.uint8)
 
@@ -528,7 +683,7 @@ class UnifiedPipeline:
             a = torch.from_numpy(np.array(a, dtype=np.float32))
         return a.to(self.device, torch.float32)
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def _mode_inputs(self, mode, keys, batch, height, width, strength,
                      init, mask_image, depth_map, masked_area_init):
         """(init_latents, mask_keep, extra channels) of a request, f32 on
@@ -575,7 +730,7 @@ class UnifiedPipeline:
                 - 1.0
         return init_latents, mask_keep, extra
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def _composite(self, images, init, mask_keep, height, width):
         """The image-space outmask: generated pixels histogram-matched to
         the init image (unless it is near constant), and every pixel the
@@ -634,6 +789,8 @@ class UnifiedPipeline:
                   hires_oos_fraction: float = 0.25,
                   hints=None,
                   clip_guidance_scale: float = 0.0,
+                  clip_cutouts: int = 4,
+                  clip_guidance_options: dict | None = None,
                   cfg_sequential: bool = False,
                   tome_ratio: float = 0.0,
                   clip_layer: int = 0,
@@ -643,10 +800,6 @@ class UnifiedPipeline:
                   chunk_steps: int = 0,
                   return_latents: bool = False,
                   output_dtype: str | None = None):
-        if clip_guidance_scale > 0:
-            raise NotImplementedError(
-                "clip_guidance_scale (ROADMAP C7, after the CLIP vision "
-                "tower of ROADMAP C6): not ported to gyre_tpu_torch yet")
         ms = self.ms
         ucfg = ms.config.unet
         factor = 8
@@ -702,6 +855,11 @@ class UnifiedPipeline:
 
         ctx_u, ctx_g = self._contexts(prompt, negative_prompt, batch, guided,
                                       clip_layer)
+        # style hints extend the contexts; the others condition the UNet
+        style = [h for h in hints or [] if h.get("kind") == "style"]
+        hints = [h for h in hints or [] if h.get("kind") != "style"]
+        if style:
+            ctx_u, ctx_g = self._style_contexts(style, batch, ctx_u, ctx_g)
         added = self._added_cond(prompt, negative_prompt, batch, guided,
                                  height, width)
         init = None if init_image is None else self._image(init_image)
@@ -740,6 +898,14 @@ class UnifiedPipeline:
             dn_base = modes.make_graft(keys)(
                 dn_base, dn_top, modes.log_progress(float(sigmas[0]),
                                                     sigma_last))
+        guide = None
+        if clip_guidance_scale > 0:
+            guide = self._clip_guide(
+                dn_base, clip_guidance_scale, clip_cutouts,
+                clip_guidance_options, prompt, keys, guided, ctx_u, ctx_g,
+                gs_arg, tiling_xy, wrap_model, hint_stack, added,
+                float(tome_ratio))
+            dn_base = guide.denoise
         dn, final_blend = dn_base, None
         if mode == "inpaint":
             wrap, final_blend = modes.make_inpaint_blend(
@@ -767,7 +933,7 @@ class UnifiedPipeline:
             # the per-step inpaint blend applies at the target size only
             dn = hwrap(dn_base, dn, modes.log_progress(float(sigmas[0]),
                                                        sigma_last))
-            with torch.inference_mode():
+            with torch.no_grad():
                 if mode == "txt2img":
                     hi = modes.txt2img_initial(keys, shape, float(sigmas[0]),
                                                self.device)
@@ -786,7 +952,7 @@ class UnifiedPipeline:
             if mode == "txt2img":
                 x = self._initial(keys, lh, lw, float(sigmas[0]))
             else:
-                with torch.inference_mode():
+                with torch.no_grad():
                     x = modes.img2img_initial(init_latents, keys,
                                               float(sigmas[0]))
             noise_keys = keys
@@ -794,12 +960,13 @@ class UnifiedPipeline:
         noise_fn = make_noise_fn(noise_keys, sigmas, shape, noise_type,
                                  self.device)
 
+        adaptive = sampler == "dpm_adaptive"
         chunked = bool(chunk_steps) and chunk_steps < n_steps and (
             hires is None) and (progress_callback is not None or
-                                stop_event is not None)
+                                stop_event is not None) and not (
+            adaptive and guide is not None)
         seg_len = chunk_steps if chunked else n_steps
         loop_total = n_steps
-        adaptive = sampler == "dpm_adaptive"
         if adaptive:
             # segments bound solver iterations; the loop ends when the
             # carried `finished` flag is set
@@ -813,6 +980,8 @@ class UnifiedPipeline:
             done += seg
             if adaptive and carry[-1]:
                 done = loop_total               # the solver reached the end
+            if chunked and guide is not None and done < n_steps:
+                guide.chunk_loss(x, float(sigmas[done]), chunk_steps)
             if progress_callback is not None:
                 progress_callback(done, loop_total)
             if chunked:
@@ -824,7 +993,7 @@ class UnifiedPipeline:
         if unpack is not None:
             x = unpack(x)[1]
         if final_blend is not None:
-            with torch.inference_mode():
+            with torch.no_grad():
                 x = final_blend(x)
         log_latents("final", x)
         if return_latents:

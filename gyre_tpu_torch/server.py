@@ -16,8 +16,10 @@ model references resolve in, --save_safetensors ENGINE_ID:PATH exports an
 engine and exits, --access_token guards both servers. --device defaults to
 cuda and refuses to start without a CUDA device; --device cpu runs the same
 path on the CPU (for tests at small presets). The JAX server's TPU flags
-(--platform, --tp) are not the port's. --nsfw_behaviour block exits, since
-the safety checker is not ported (ROADMAP C6); flag and ignore flag nothing.
+(--platform, --tp) are not the port's. --nsfw_behaviour block exits with
+code 2 unless engines.yaml configures a trained safety checker (a
+``task: safety`` engine or a ``safety_checker:`` key), as the JAX server
+does; flag without one flags nothing.
 """
 
 from __future__ import annotations
@@ -110,9 +112,10 @@ def parse_args(argv=None):
     gen.add_argument("--nsfw_behaviour", type=str,
                      choices=["block", "flag", "ignore"],
                      default=os.environ.get("SD_NSFW_BEHAVIOUR", "flag"),
-                     help="the safety checker is not ported (ROADMAP C6): "
-                          "flag and ignore flag nothing, block refuses to "
-                          "start")
+                     help="what to do with images the safety checker "
+                          "flags: block blacks them out and needs a "
+                          "trained checker in engines.yaml; flag marks "
+                          "them (FILTER); ignore skips the check")
     gen.add_argument("--save_safetensors", type=str, default=None,
                      metavar="ENGINE_ID:PATH",
                      help="export an engine's weights as a diffusers-layout "
@@ -386,7 +389,8 @@ def serve(args, manager, cache=None, log_store=None) -> Serving:
                 if args.debug_recording else DebugNullRecorder())
     generation = GenerationServiceServicer(
         manager, batch_max=manager.batch_max, debug_recorder=recorder,
-        resource_cache=cache)
+        resource_cache=cache,
+        nsfw_behaviour=getattr(args, "nsfw_behaviour", "flag"))
     engines = EnginesServiceServicer(manager)
     grpc_server, grpc_port = build_server(
         manager, args.grpc_port, batch_max=manager.batch_max,
@@ -534,17 +538,19 @@ def main(argv=None, stop: threading.Event | None = None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: start with --device cpu to run "
                          "on the CPU")
-    if args.nsfw_behaviour == "block":
-        # fail closed: there is no checker to block with
-        logger.error("nsfw_behaviour=block needs the safety checker, which "
-                     "is not ported to gyre_tpu_torch yet (ROADMAP C6); "
-                     "use --nsfw_behaviour flag or ignore")
-        sys.exit(2)
     if args.reload:
         SourceWatcher(extra_paths=[args.enginecfg],
                       argv=sys.argv[1:] if argv is None else argv).start()
     t0 = time.time()
     manager = build_manager(args)
+    if args.nsfw_behaviour == "block" and manager.safety_checker() is None:
+        # fail closed: blocking on random-weight flags would be noise
+        logger.error("nsfw_behaviour=block requires trained safety-checker "
+                     "weights; add a 'safety_checker:' model reference to "
+                     "engines.yaml (e.g. CompVis/stable-diffusion-safety-"
+                     "checker) or use --nsfw_behaviour flag/ignore")
+        manager.dispatcher.stop()
+        sys.exit(2)
 
     if args.save_safetensors:
         from .models.load import save_modelset

@@ -35,12 +35,17 @@ the init image from an upscaler). As in the JAX servicer, such a request
 passes the engine its init image alone: a diffusion upscaler runs with no
 prompt and seed 0, and the answer's artifact reports the request's seed.
 The engine's ``options:`` are read as the JAX servicer reads them
-(request values win), ``cfg_sequential`` and ``tome_ratio`` among them,
-and any other key is ignored. What the port lacks answers UNIMPLEMENTED,
-naming its ROADMAP item, and is never ignored silently where it would
-change the image: CLIP guidance (C7). The safety checker is
-not ported (ROADMAP C6): as the JAX package without trained checker
-weights, nothing is flagged.
+(request values win), ``cfg_sequential``, ``tome_ratio``,
+``clip_guidance_scale`` and ``clip`` (CLIP guidance's settings) among
+them, and any other key is ignored. A request's ``guidance`` parameters
+turn CLIP guidance on (scale 0.5, or its instance's strength). Each
+generated image is checked by the safety checker on the dispatcher's
+thread, as in the JAX servicer: under ``nsfw_behaviour`` "flag" a flagged
+image answers with finish_reason FILTER, under "block" it is blacked out
+as well, and "block" without a trained checker fails the request (fail
+closed); "flag" without one flags nothing, and "ignore" skips the check.
+What the port lacks answers UNIMPLEMENTED and is never ignored silently
+where it would change the image.
 """
 
 from __future__ import annotations
@@ -102,6 +107,8 @@ class ExtractedParams:
     tiling: bool | str = False
     cfg_sequential: bool = False
     tome_ratio: float = 0.0
+    clip_guidance_scale: float = 0.0
+    clip_guidance_options: dict | None = None
     echo_artifacts: list = field(default_factory=list)
     lora_artifacts: list = field(default_factory=list)
     ti_artifacts: list = field(default_factory=list)
@@ -117,12 +124,6 @@ def _unported(feature: str, item: str | None = None):
     where = f" (ROADMAP {item})" if item else ""
     raise NotImplementedError(
         f"{feature} is not ported to gyre_tpu_torch yet{where}")
-
-
-def _unported_clip_guidance():
-    raise NotImplementedError(
-        "CLIP guidance is not ported to gyre_tpu_torch yet (ROADMAP C7, "
-        "after the CLIP vision tower of ROADMAP C6)")
 
 
 def extract_params(request: pb.Request, adjuster=None) -> ExtractedParams:
@@ -251,7 +252,12 @@ def extract_params(request: pb.Request, adjuster=None) -> ExtractedParams:
         if sp.HasField("schedule") and sp.schedule.HasField("start"):
             p.strength = sp.schedule.start
         if sp.HasField("guidance"):
-            _unported_clip_guidance()
+            g = sp.guidance
+            if g.guidance_preset != pb.GUIDANCE_PRESET_NONE:
+                p.clip_guidance_scale = 0.5
+                for inst in g.instances:
+                    if inst.HasField("guidance_strength"):
+                        p.clip_guidance_scale = inst.guidance_strength
         if not sp.HasField("sampler"):
             continue
         s = sp.sampler
@@ -448,8 +454,10 @@ class AsyncContext:
 
 class GenerationServiceServicer:
     def __init__(self, manager, batch_max: int = 4, debug_recorder=None,
-                 resource_cache=None):
+                 resource_cache=None, nsfw_behaviour: str = "flag"):
         self.manager = manager
+        self.nsfw_behaviour = nsfw_behaviour
+        self._warned_untrained = False
         self.batch_max = batch_max
         self.debug_recorder = debug_recorder
         self.resource_cache = resource_cache
@@ -548,8 +556,7 @@ class GenerationServiceServicer:
     @staticmethod
     def _engine_options(p: ExtractedParams, opts: dict):
         """The engine's ``options:`` as request defaults, the keys the JAX
-        servicer reads; an option that would change the image and that the
-        port lacks raises (CLIP guidance C7); others are ignored."""
+        servicer reads; others are ignored."""
         if not p.sampler_set:
             p.sampler = opts.get("sampler", p.sampler)
         if p.karras_rho is None and "karras_rho" in opts:
@@ -559,11 +566,41 @@ class GenerationServiceServicer:
         if p.hires_fix is None and "hires_fix" in opts:
             p.hires_fix = bool(opts["hires_fix"])
         p.cfg_sequential = bool(opts.get("cfg_sequential", False))
-        clip = opts.get("clip")
-        if float(opts.get("clip_guidance_scale", 0.0)) or (
-                isinstance(clip, dict) and clip.get("guidance_scale")):
-            _unported_clip_guidance()
+        if p.clip_guidance_scale == 0 and "clip_guidance_scale" in opts:
+            p.clip_guidance_scale = float(opts["clip_guidance_scale"])
+        if isinstance(opts.get("clip"), dict):
+            # the engine's ClipGuidanceConfig fields: guidance_base,
+            # vae/approx cutouts, no_cutouts, gradient_length/threshold/
+            # maxloss, and a guidance_scale where the request sets none
+            copts = dict(opts["clip"])
+            scale = copts.pop("guidance_scale", None)
+            if p.clip_guidance_scale == 0 and scale:
+                p.clip_guidance_scale = float(scale)
+            p.clip_guidance_options = copts
         p.tome_ratio = float(opts.get("tome_ratio", 0.0))
+
+    def _safety_check(self, images) -> np.ndarray:
+        """bool[B] flags of uint8 or [0,1] images [B,H,W,3]: "ignore" and
+        "flag" without a trained checker flag nothing, "block" without one
+        raises (fail closed); the check runs on the dispatcher's thread."""
+        if self.nsfw_behaviour == "ignore":
+            return np.zeros((images.shape[0],), bool)
+        checker = self.manager.safety_checker()
+        if checker is None or not checker.trained:
+            if self.nsfw_behaviour == "block":
+                raise RuntimeError(
+                    "nsfw_behaviour=block requires trained safety-checker "
+                    "weights; add a 'safety_checker:' model to engines.yaml"
+                    " or run with --nsfw_behaviour flag/ignore")
+            if not self._warned_untrained:
+                self._warned_untrained = True
+                logger.warning("no trained safety checker configured; "
+                               "nsfw flagging disabled")
+            return np.zeros((images.shape[0],), bool)
+        imgs = images.astype(np.float32) / 255.0 \
+            if images.dtype == np.uint8 else images
+        return self.manager.dispatcher.submit(
+            lambda: checker.check(imgs), {}, solo=True).result()
 
     def _run_task(self, p: ExtractedParams, spec):
         """A request to a task engine: its init image through the engine's
@@ -577,12 +614,13 @@ class GenerationServiceServicer:
         out = self.manager.dispatcher.submit(
             lambda: fn(init).cpu().numpy(), {}, solo=True).result()
         seed = p.seeds[0] if p.seeds else 0
-        yield out[0], seed, 0, {"engine": spec.id, "op": spec.task}
+        yield out[0], seed, 0, {"engine": spec.id, "op": spec.task}, False
 
     def _run_request(self, request: pb.Request, stop_event=None):
-        """Yield (image uint8 [H,W,3], seed, index, metadata) for each
-        image, then (artifact, None, index, None) for each artifact the
-        request asked to have echoed back."""
+        """Yield (image uint8 [H,W,3], seed, index, metadata, flagged) for
+        each image (blacked out when flagged under "block"), then
+        (artifact, None, index, None, False) for each artifact the request
+        asked to have echoed back."""
         seed = request.image.seed[0] if request.image.seed else 0
         with STATS.timer("extract"):
             p = extract_params(request, adjuster=self._adjuster(seed))
@@ -633,6 +671,8 @@ class GenerationServiceServicer:
                     hints=hints or None,
                     cfg_sequential=p.cfg_sequential,
                     tome_ratio=p.tome_ratio,
+                    clip_guidance_scale=p.clip_guidance_scale,
+                    clip_guidance_options=p.clip_guidance_options,
                     output_dtype="uint8", stop_event=stop_event,
                     chunk_steps=10 if stop_event is not None else 0)
                 try:
@@ -645,13 +685,17 @@ class GenerationServiceServicer:
                 if imgs is None:   # cancelled mid-request
                     return
                 imgs = np.asarray(imgs)
+                flags = self._safety_check(imgs)
                 for j, seed in enumerate(batch):
                     md = {k: str(v) for k, v in
                           dict(meta, seed=seed, index=index).items()}
-                    yield imgs[j], seed, index, md
+                    img = imgs[j]
+                    if flags[j] and self.nsfw_behaviour == "block":
+                        img = np.zeros_like(img)
+                    yield img, seed, index, md, bool(flags[j])
                     index += 1
             for art in p.echo_artifacts:
-                yield art, None, index, None
+                yield art, None, index, None, False
                 index += 1
 
     def _answers(self, request: pb.Request, stop_event):
@@ -666,14 +710,15 @@ class GenerationServiceServicer:
                 store.store("prompts", [p.text for p in request.prompt
                                         if p.WhichOneof("prompt") == "text"])
         recv = int(time.time())
-        for item, seed, index, md in self._run_request(request, stop_event):
+        for item, seed, index, md, flagged in self._run_request(
+                request, stop_event):
             if isinstance(item, pb.Artifact):        # echoed back
                 artifact = item
             else:
                 with STATS.timer("encode"):
-                    artifact = image_to_artifact(item, index=index,
-                                                 seed=seed, metadata=md,
-                                                 mime=mime)
+                    artifact = image_to_artifact(
+                        item, index=index, seed=seed, metadata=md, mime=mime,
+                        finish_reason=pb.FILTER if flagged else pb.NULL)
             yield pb.Answer(
                 answer_id=f"{request.request_id}-{index}",
                 request_id=request.request_id,

@@ -17,7 +17,6 @@ import threading
 import time
 import urllib.request
 
-import grpc
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,7 +31,6 @@ from gyre_tpu.services import adjustments as jadj
 from gyre_tpu.services import generate as jgen
 from gyre_tpu_torch import server as tserver
 from gyre_tpu_torch.generated import generation_pb2 as tpb
-from gyre_tpu_torch.http.router import AbortError as TAbortError
 from gyre_tpu_torch.http.router import FakeGrpcContext as TContext
 from gyre_tpu_torch.manager.manager import EngineManager as TManager
 from gyre_tpu_torch.models import dpt as tdpt
@@ -168,31 +166,26 @@ def test_examples_engine_options_serve_as_in_jax(servicers):
     ({"tome_ratio": 0.5}, "C6"), ({"clip_guidance_scale": 0.3}, "C7"),
     ({"clip": {"guidance_scale": 0.4}}, "C7")])
 def test_unported_engine_options_are_unimplemented(options, item):
-    """CLIP guidance (C7) answers UNIMPLEMENTED naming its item. ToMe,
-    filed under C6 until it was ported beside D4b (its case keeps its id),
-    serves: one PNG, not the image of the same request to the same weights
-    without the option (tests/test_torch_tome.py holds it to JAX)."""
+    """The engine options of ToMe (filed under C6 until it was ported
+    beside D4b) and CLIP guidance (C7, ported since; the case ids keep the
+    items) serve: one PNG, not the image of the same request to the same
+    weights without the option (tests/test_torch_tome.py and
+    tests/test_torch_guidance.py hold them to JAX)."""
     m = TManager([{"id": "tiny", "model": "preset/test",
                    "options": options},
                   {"id": "plain", "model": "preset/test"}], device="cpu",
                  compute_dtype=torch.float32)
     try:
         servicer = tgen.GenerationServiceServicer(m)
-        context = TContext()
-        if item == "C6":
-            (got,) = servicer.Generate(_generate_request(tpb, "tiny"),
-                                       context)
-            (plain,) = servicer.Generate(_generate_request(tpb, "plain"),
-                                         TContext())
-            got, plain = (timages.decode_png(a.artifacts[0].binary)
-                          for a in (got, plain))
-            assert got.shape == plain.shape == (1, 64, 64, 3)
-            assert np.abs(got - plain).max() > 1.0 / 255
-            return
-        with pytest.raises(TAbortError):
-            list(servicer.Generate(_generate_request(tpb, "tiny"), context))
-        assert context.code == grpc.StatusCode.UNIMPLEMENTED
-        assert f"ROADMAP {item}" in context.details
+        (got,) = servicer.Generate(_generate_request(tpb, "tiny"),
+                                   TContext())
+        (plain,) = servicer.Generate(_generate_request(tpb, "plain"),
+                                     TContext())
+        assert got.artifacts[0].mime == "image/png"
+        got, plain = (timages.decode_png(a.artifacts[0].binary)
+                      for a in (got, plain))
+        assert got.shape == plain.shape == (1, 64, 64, 3)
+        assert np.abs(got - plain).max() > 1.0 / 255
     finally:
         m.dispatcher.stop()
 

@@ -141,8 +141,22 @@ def test_t2i_adapter_matches_jax(nets):
     fused = tt2i.coadapter_fuse([tf, tf], [0.25, 0.5])
     jfused = jt2i.coadapter_fuse([jf, jf], [0.25, 0.5])
     assert max(_err(a, b) for a, b in zip(jfused, fused)) <= 1e-4
-    with pytest.raises(NotImplementedError, match="C6"):
-        tt2i.style_apply(None, None)
+    # the style adapter (ROADMAP C6, ported since): its tokens from a
+    # vision tower's, against the JAX package's, and its TencentARC export
+    # read back by both loaders
+    js = jt2i.style_init(jax.random.PRNGKey(3), context_dim=32,
+                         vision_dim=64, n_tokens=4, n_layers=2)
+    ts = tms.style_from_jax(jax.tree.map(np.asarray, js), device="cpu")
+    tokens = np.random.default_rng(5).standard_normal((2, 17, 64)).astype(
+        np.float32)
+    ref = jt2i.style_apply(js, jnp.asarray(tokens))
+    assert tuple(ref.shape) == (2, 4, 32)
+    assert _err(ref, tt2i.style_apply(ts, _t(tokens))) <= 1e-4
+    state = tt2i.export_style_state(ts)
+    back = tt2i.load_style_params(state, torch.float32, "cpu")
+    jback = jt2i.load_style_params({k: v.numpy() for k, v in state.items()})
+    assert _err(jt2i.style_apply(jback, jnp.asarray(tokens)),
+                tt2i.style_apply(back, _t(tokens))) <= 1e-4
 
 
 def test_avg_pool_2x_matches_jax():

@@ -35,7 +35,7 @@ for name in ("manager.engines_yaml", "manager.weights", "manager.mixing",
              "models.swinir", "models.hat", "models.esrgan",
              "models.inspyrenet", "pipeline.upscaler", "models.kunet",
              "models.codeformer", "ops.tome",
-             "pipeline.diffusion_upscaler"):
+             "pipeline.diffusion_upscaler", "pipeline.safety", "models.clip"):
     assert "gyre_tpu_torch." + name in names, name
 import chip_smoke, kernel_sweep  # the root scripts
 loaded = [k for k, v in sys.modules.items()

@@ -23,8 +23,12 @@ of 64, T = 257 / 577 / 1025: ragged query rows) and inside the DPT's
 blocks, and K2a/K2b at the SD1.5 UNet's one-row shapes of cfg_sequential;
 K1 at the x4 upscaler's head dims 8, 16 and 32 and its VAE's 512 over
 16384 tokens, at the k-UNet's head dim 64 and on ToMe's merged tokens;
-K2a/K2b at the x4 UNet's 2 channels a group and Co = 64.
-Bounds as in chip_smoke.py:
+K2a/K2b at the x4 UNet's 2 channels a group and Co = 64; K1 at
+ViT-L/14's, the style adapter's and the 28²-cutout VAE's shapes and
+against 85 context tokens, K2a/K2b through the cutout decode; the
+gradients through K1's and K2's recompute Functions against the plain
+versions' autograd, and the refusal of a direct launch that would cut the
+graph. Bounds as in chip_smoke.py:
 2e-2 of max |plain| in bf16 (compounded bf16 rounding, ~5x margin), 1e-3
 for K2a's f32 statistics.
 """
@@ -48,7 +52,7 @@ def gen():
 
 
 def _rel(out, ref):
-    out, ref = out.float(), ref.float()
+    out, ref = out.detach().float(), ref.detach().float()
     assert bool(out.isfinite().all())
     return float((out - ref).abs().max() / ref.abs().max())
 
@@ -491,3 +495,112 @@ def test_tome_merged_self_attention(gen, n, c, heads):
         p["out"]["b"])
     assert _rel(out, ref) <= BF16_BOUND
     assert tome.unmerge(out, info).shape == (2, n, c)
+
+
+# ------------------------------------------------ CLIP guidance, style
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t,d", [
+    (4, 16, 257, 64), (8, 16, 257, 64), (1, 8, 265, 128), (2, 1, 784, 512)])
+def test_flash_attention_clip_shapes(gen, b, h, t, d):
+    """ViT-L/14's attention on 4 guidance views and on a safety batch of 8
+    (T = 257), the style adapter's (257 + 8 tokens, 8 heads of 128), the
+    VAE mid block on two 28² latent cutouts (784 tokens of one 512 head)."""
+    q, k, v = (_btd(gen, b, t, h, d) for _ in range(3))
+    assert _rel(A.attention(q, k, v), _attention_ref(q, k, v)) <= BF16_BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d", [(4096, 40), (1024, 80), (256, 160),
+                                 (64, 160)])
+def test_flash_attention_style_cross(gen, t, d):
+    """The UNet's cross-attention against 77 + 8 style tokens."""
+    q = _btd(gen, 2, t, 8, d)
+    k, v = _btd(gen, 2, 85, 8, d), _btd(gen, 2, 85, 8, d)
+    assert _rel(A.attention(q, k, v), _attention_ref(q, k, v)) <= BF16_BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hw,c,co", [(2, 28, 512, 512), (2, 56, 512, 512),
+                                       (2, 112, 512, 256),
+                                       (1, 224, 256, 128)])
+def test_kernels_at_cutout_decode(gen, b, hw, c, co):
+    """K2a + K2b through the VAE decoder of 28² latent cutouts (widths 28,
+    56, 112, 224: no multiple of K2b's 16-pixel tile but 112 and 224)."""
+    x = (torch.randn((b, hw, hw, c), generator=gen, device="cuda") +
+         1.0).to(torch.bfloat16)
+    gs = 1 + 0.1 * _randn(gen, c, dtype=torch.float32)
+    gb = 0.1 * _randn(gen, c, dtype=torch.float32)
+    wt = _randn(gen, 3, 3, c, co) * (9 * c) ** -0.5
+    cb = 0.1 * _randn(gen, co, dtype=torch.float32)
+    out = FC.gn_silu_conv3x3(x, gs, gb, wt, cb, groups=32, eps=1e-6)
+    ref = FC.gn_silu_conv3x3_plain(x, gs, gb, wt, cb, groups=32, eps=1e-6)
+    assert _rel(out, ref) <= BF16_BOUND
+
+
+def _grads(fn, ins, g):
+    xs = [t.detach().requires_grad_() for t in ins]
+    out = fn(*xs)
+    return [out, *torch.autograd.grad(out, xs, g)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq,tk,d", [(600, 77, 40), (1024, 1024, 80),
+                                     (257, 257, 64)])
+def test_flash_attention_gradient(gen, tq, tk, d):
+    """attention() on tensors that require grad runs K1 once, under
+    FlashGrad; its gradients (the chunked plain recompute's, 512 query
+    rows a block) against the plain version's autograd."""
+    q = _btd(gen, 1, tq, 8, d)
+    k, v = _btd(gen, 1, tk, 8, d), _btd(gen, 1, tk, 8, d)
+    g = _randn(gen, 1, tq, 8, d)
+    before = _build.launches["flash_attention"]
+    got = _grads(A.attention, (q, k, v), g)
+    assert _build.launches["flash_attention"] == before + 1
+    assert got[0].grad_fn is not None
+    ref = _grads(_attention_ref, (q, k, v), g)
+    assert max(_rel(a, b) for a, b in zip(got, ref)) <= BF16_BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hw,c,co", [(1, 64, 320, 320), (2, 28, 512, 512)])
+def test_gn_silu_conv3x3_gradient(gen, b, hw, c, co):
+    """gn_silu_conv3x3 on tensors that require grad runs K2a and K2b once
+    each, under GnSiluConvGrad; the gradients of x, the GN affine, the
+    weight and the conv bias against the plain chain's autograd."""
+    x = (torch.randn((b, hw, hw, c), generator=gen, device="cuda") +
+         1.0).to(torch.bfloat16)
+    ins = (x, 1 + 0.1 * _randn(gen, c, dtype=torch.float32),
+           0.1 * _randn(gen, c, dtype=torch.float32),
+           _randn(gen, 3, 3, c, co) * (9 * c) ** -0.5,
+           0.1 * _randn(gen, co, dtype=torch.float32))
+    g = _randn(gen, b, hw, hw, co)
+    before = (_build.launches["gn_stats"], _build.launches["gn_silu_conv3x3"])
+    got = _grads(lambda *a: FC.gn_silu_conv3x3(*a, groups=32, eps=1e-6),
+                 ins, g)
+    assert (_build.launches["gn_stats"],
+            _build.launches["gn_silu_conv3x3"]) == (before[0] + 1,
+                                                    before[1] + 1)
+    ref = _grads(lambda *a: FC.gn_silu_conv3x3_plain(*a, groups=32,
+                                                     eps=1e-6), ins, g)
+    assert max(_rel(a, b) for a, b in zip(got, ref)) <= BF16_BOUND
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_to_cut_a_graph(gen):
+    """A direct launch of K1, K2a or K2b on a tensor that requires grad
+    raises (its output would have no grad_fn); under no_grad it runs."""
+    q = _btd(gen, 1, 64, 2, 16).requires_grad_()
+    with pytest.raises(RuntimeError, match="autograd graph"):
+        A._flash(q, q, q, 0.25)
+    x = _randn(gen, 1, 8, 8, 32).requires_grad_()
+    gs, gb = (torch.ones(32, device="cuda"), torch.zeros(32, device="cuda"))
+    with pytest.raises(RuntimeError, match="autograd graph"):
+        FC.gn_affine(x, gs, gb, 32, 1e-6)
+    a, b = FC.gn_affine(x.detach(), gs, gb, 32, 1e-6)
+    w = _randn(gen, 3, 3, 32, 8)
+    with pytest.raises(RuntimeError, match="autograd graph"):
+        FC.affine_silu_conv3x3(x, a, b, w, torch.zeros(8, device="cuda"))
+    with torch.no_grad():
+        assert A._flash(q, q, q, 0.25).shape == q.shape

@@ -294,10 +294,14 @@ def test_txt2img_from_loaded_engine_matches_jax(exported):
     ("load_controlnet_params", "C4"), ("load_clip_vision_params", "C6"),
     ("load_clip_model_params", "C6"), ("load_kunet_params", "D4")])
 def test_other_loaders_name_their_roadmap_item(loader, item):
-    """A loader not ported yet raises naming its ROADMAP item; the
-    ControlNet's (C4) and the k-UNet's (D4b), ported since, are strict: an
-    empty state dict names the first key each lacks (tests/
-    test_torch_kunet.py holds the k-UNet's loader to the JAX one's)."""
+    """The loaders of the later slices, each ported since its ROADMAP item
+    (the case ids keep the items): the ControlNet's (C4), the k-UNet's
+    (D4b) and the CLIP vision and CLIPModel loaders (C6) are strict, an
+    empty state dict raising with the first key each lacks (tests/
+    test_torch_kunet.py holds the k-UNet's loader to the JAX one's); each
+    C6 loader reads its own export back in every bit, and the JAX loader
+    reads it to the same embeddings (tests/test_torch_clip_vision.py holds
+    them further)."""
     if item == "C4":
         with pytest.raises(ValueError, match="no leaf conv_in.weight"):
             tload.load_controlnet_params({}, tconfigs.UNET_TEST,
@@ -307,5 +311,41 @@ def test_other_loaders_name_their_roadmap_item(loader, item):
         with pytest.raises(KeyError, match="conv_in.weight"):
             tload.load_kunet_params({}, device="cpu")
         return
-    with pytest.raises(NotImplementedError, match=item):
-        getattr(tload, loader)({})
+    from gyre_tpu.models import clip as jclip
+    from gyre_tpu_torch.models import clip as tclip
+
+    with pytest.raises(KeyError, match="no CLIP"):
+        getattr(tload, loader)({}, device="cpu")
+    vcfg = tclip.CLIP_VISION_TEST
+    vision = tclip.random_vision(vcfg, 1, torch.float32, "cpu")
+    imgs = torch.rand((1, 32, 32, 3), generator=torch.Generator(
+    ).manual_seed(0))
+    if loader == "load_clip_vision_params":
+        state = tload.export_clip_vision_state(vision, vcfg, "vision")
+        back, cfg = tload.load_clip_vision_params(
+            state, torch.float32, "cpu", num_heads=vcfg.num_heads)
+        jp, jcfg = jload.load_clip_vision_params(
+            {k: v.numpy() for k, v in state.items()},
+            num_heads=vcfg.num_heads)
+    else:
+        tcfg = dataclasses.replace(tconfigs.CLIP_TEST, projection_dim=32)
+        text = tms.random_tree(tclip.param_specs(tcfg), 2, torch.float32,
+                               "cpu")
+        state = tload.export_clip_model_state(text, tcfg, vision, vcfg)
+        t2, tcfg2, back, cfg = tload.load_clip_model_params(
+            state, torch.float32, "cpu", text_heads=tcfg.num_heads,
+            vision_heads=vcfg.num_heads)
+        assert dataclasses.asdict(tcfg2) == dataclasses.asdict(
+            dataclasses.replace(tcfg, eos_token_id=tcfg.vocab_size - 1))
+        assert all(torch.equal(a, b) for a, b in zip(
+            tms._leaves(t2), tms._leaves(text)))
+        *_, jp, jcfg = jload.load_clip_model_params(
+            {k: v.numpy() for k, v in state.items()},
+            text_heads=tcfg.num_heads, vision_heads=vcfg.num_heads)
+    assert cfg == vcfg
+    assert all(torch.equal(a, b) for a, b in zip(tms._leaves(back),
+                                                 tms._leaves(vision)))
+    out = tclip.vision_apply(back, cfg, imgs)["image_embeds"]
+    ref = jclip.vision_apply(jp, jcfg, jnp.asarray(imgs.numpy()))
+    assert np.abs(out.numpy() - np.asarray(ref["image_embeds"])).max() \
+        <= 1e-4

@@ -118,23 +118,50 @@ def test_noise_is_per_seed():
     ({"hints": [{"image": np.ones((1, 64, 64, 3), np.float32)}]}, "C4"),
     ({"clip_guidance_scale": 0.5}, "C6"),
 ])
-def test_unported_options_raise(pipes, kwargs, match):
-    """An option not ported yet raises naming its ROADMAP item. Hints (C4)
-    are ported since: a ControlNet as random_controlnet makes one (zero
-    convs zero) gives the image without it in every bit, and only a style
-    hint raises, naming C6 (the CLIP vision tower)."""
+def test_unported_options_raise(pipes, monkeypatch, kwargs, match):
+    """Options filed as not ported, each served since (the case ids keep
+    their ROADMAP items). Hints (C4): a ControlNet as random_controlnet
+    makes one (zero convs zero) gives the image without it in every bit,
+    and a style hint (C6) gives the JAX pipeline's image. CLIP guidance
+    (C7) at scale 0.5 with the default 2 approx and 2 VAE cutouts (their
+    offsets the JAX package's draws) gives the JAX pipeline's image. Both
+    packages use the JAX engine's random vision tower."""
+    from gyre_tpu.models import t2i_adapter as jt2i
     from gyre_tpu_torch.models import controlnet as tcn
+    from gyre_tpu_torch.pipeline import clip_guidance as tcg
+    from test_torch_guidance import jax_offsets
 
-    _, tpipe = pipes
+    jpipe, tpipe = pipes
+    jvision = jpipe.clip_vision()
+    vcfg = jpipe._clip_vision_cfg
+    tpipe._clip.update(vision=tms.clip_vision_from_jax(
+        jax.tree.map(np.asarray, jvision), vcfg, device="cpu"),
+        vision_cfg=vcfg)
+    monkeypatch.setattr(tmodes, "txt2img_initial", _jax_noise)
     if match == "C4":
         (hint,) = kwargs["hints"]
-        hint = dict(hint, params=tcn.random_controlnet(
+        zero = dict(hint, params=tcn.random_controlnet(
             CFG.unet, dtype=torch.float32, device="cpu"))
-        assert torch.equal(tpipe(**dict(REQUEST, hints=[hint])),
+        assert torch.equal(tpipe(**dict(REQUEST, hints=[zero])),
                            tpipe(**REQUEST))
-        kwargs, match = {"hints": [dict(hint, kind="style")]}, "C6"
-    with pytest.raises(NotImplementedError, match=match):
-        tpipe(**dict(REQUEST, **kwargs))
+        jstyle = jt2i.style_init(jax.random.PRNGKey(2), context_dim=64,
+                                 vision_dim=vcfg.hidden_size, n_tokens=8,
+                                 n_layers=2)
+        tstyle = tms.style_from_jax(jax.tree.map(np.asarray, jstyle),
+                                    device="cpu")
+        jkw = {"hints": [dict(hint, kind="style", params=jstyle)]}
+        kwargs = {"hints": [dict(hint, kind="style", params=tstyle)]}
+    else:
+        jkw = kwargs
+        monkeypatch.setattr(
+            tcg, "cutout_offsets",
+            lambda keys, stream, n, h, w, cut, cut_power=1.0: jax_offsets(
+                keys, stream, n, h, w, cut, cut_power))
+    ref = np.asarray(jpipe(**dict(REQUEST, **jkw)))
+    out = tpipe(**dict(REQUEST, **kwargs)).numpy()
+    assert out.shape == ref.shape == (2, 64, 64, 3)
+    assert np.abs(out - ref).max() <= 2e-3
+    assert np.abs(out - tpipe(**REQUEST).numpy()).max() > 1e-2
 
 
 @pytest.mark.parametrize("kwargs", [

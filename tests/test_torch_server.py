@@ -421,8 +421,34 @@ def test_localtunnel_missing_npx(monkeypatch):
 
 
 def test_nsfw_block_exits_naming_c6(tmp_path, caplog):
+    """--nsfw_behaviour block without a trained safety checker exits with
+    code 2 (fail closed), as the JAX server does; with one configured (a
+    `safety_checker:` key; the checker ported under ROADMAP C6) the server
+    starts, loads it and serves until stopped."""
+    import logging
+
+    from gyre_tpu_torch.models.load import write_safetensors
+    from gyre_tpu_torch.pipeline.safety import SafetyChecker
+
     with pytest.raises(SystemExit) as err:
         tserver.main(["--nsfw_behaviour", "block", "--device", "cpu",
                       "--cache_path", str(tmp_path)])
     assert err.value.code == 2
-    assert "ROADMAP C6" in caplog.text
+    assert "requires trained safety-checker" in caplog.text
+    checker = tmp_path / "checker.safetensors"
+    write_safetensors(str(checker),
+                      SafetyChecker.random(device="cpu").state_dict())
+    cfg = tmp_path / "engines.yaml"
+    cfg.write_text("- {id: tiny, model: preset/test, safety_checker: "
+                   f"{checker}}}\n")
+    stop = threading.Event()
+    stop.set()                       # serve, load, then shut down at once
+    caplog.clear()
+    with caplog.at_level(logging.INFO):
+        tserver.main(["--nsfw_behaviour", "block", "--device", "cpu",
+                      "--dtype", "float32", "--enginecfg", str(cfg),
+                      "--grpc_port", str(_free_port()), "--http_port",
+                      str(_free_port()), "--cache_path", str(tmp_path)],
+                     stop)
+    assert "safety checker loaded" in caplog.text
+    assert "engines ready" in caplog.text

@@ -111,11 +111,13 @@ def test_grpc_generate_every_sampler(channel, sampler):
 @pytest.mark.parametrize("mutate,item", [
     ("lora", "C3"), ("hint_image", "C4"), ("clip_guidance", "C6")])
 def test_grpc_unported_features_are_unimplemented(channel, mutate, item):
-    """A feature not ported yet answers UNIMPLEMENTED naming its ROADMAP
-    item. LoRA artifacts (C3) and hint images (C4) are served since: a
-    LoRA whose bytes are no safetensors file is skipped, as in the JAX
-    servicer, and a hint image of a type no hintset names is skipped with
-    a warning; each request answers its PNG."""
+    """Features filed as not ported, each served since (the case ids keep
+    their ROADMAP items): a LoRA whose bytes are no safetensors file is
+    skipped, as in the JAX servicer (C3); a hint image of a type no
+    hintset names is skipped with a warning (C4); a request with the
+    guidance parameters runs CLIP guidance (C7; scale 0.5, the engine's
+    random vision tower), both images differing from the unguided
+    request's. Each request answers its PNGs."""
     req = _request()
     if mutate in ("lora", "hint_image"):
         art = req.prompt.add()
@@ -132,12 +134,15 @@ def test_grpc_unported_features_are_unimplemented(channel, mutate, item):
                 for a in ans.artifacts]
         assert len(arts) == 2 and arts[0].mime == "image/png"
         return
+    from gyre_tpu_torch.ops.images import decode_png
+
     req.image.parameters.add().guidance.guidance_preset = \
         pb.GUIDANCE_PRESET_SIMPLE
-    with pytest.raises(grpc.RpcError) as err:
-        list(_generate(channel)(req, timeout=60))
-    assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED
-    assert f"ROADMAP {item}" in err.value.details()
+    guided, plain = ([decode_png(a.binary) for ans in _generate(channel)(
+        r, timeout=120) for a in ans.artifacts] for r in (req, _request()))
+    assert len(guided) == len(plain) == 2
+    assert all(np.abs(g - p).max() > 1.0 / 255
+               for g, p in zip(guided, plain))
 
 
 def test_grpc_list_engines(channel):
