@@ -59,6 +59,21 @@ Phases, each printing one JSON object per line:
                with each call's host numbers (time to queue its work,
                the queuing thread's CPU time and preemptions), batch-8
                images/s, peak memory and what phase 3 left allocated
+  4b. pool     the device mesh (parallel/mesh.py, pool.py) on the card:
+               SD1.5 at 512² as phase 4, batch 8 through a pool of two
+               replicas on cuda:0 (4 + 4 rows, a host thread each)
+               against one replica on each group's rows (uint8 within
+               POOL_LEVELS) and on all 8 (within BATCH_LEVELS), both
+               walls, launches 2 x 641 / 908 / 908, and tp = 2 with both
+               shards on cuda:0 at batch 1 and 8 against tp = 1 (within
+               TP_LEVELS, walls, K1 launches 2 x 32 a UNet call + 1: each
+               shard launches); with more than one visible GPU a pool
+               over all of them too. Its K1 shapes at H/2 heads are phase
+               3's rows tagged pool (the "pool_shapes" line). Then A2:
+               the host cost of a threefry draw at [8, 128, 128, 4] on the
+               card against the per-seed torch.Generator draw it replaced
+               (kept here as ``_generator_draw``), and the batch-1 p50
+               with each, alternating
   5. samplers  every sampler function of the port (15, behind 20 names)
                on the same SD1.5 engine as phase 4, 20 steps, batch 1,
                each with its model calls counted (a wrapper around the
@@ -306,7 +321,7 @@ Phases, each printing one JSON object per line:
 
 After each phase from 5 on it prints what the phase left allocated on the
 card. At the end it prints the sums of the mode, ControlNet, C5, adjust,
-hinter, upscaler and clip rows, the "c5_paths", "upscaler_paths" and
+hinter, upscaler, clip and pool rows, the "c5_paths", "upscaler_paths" and
 "clip_paths" lines (each sd2/sdxl request's, each x4, x2 and ToMe
 request's, and each clip phase request's, launches and the sums over them
 of phase 3's kernel, plain, library and bound times), then,
@@ -1092,6 +1107,33 @@ PEAK_BF16_TC = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 
+# the pool phase, uint8 levels. A two-replica pool against one replica on
+# each group's rows (the split, the threads, the gather: 0 measured), within
+# POOL_LEVELS; against one replica's whole batch within BATCH_LEVELS (max)
+# and BATCH_MEAN_LEVELS (mean): in bf16 one replica's images of 4 rows
+# already differ from its images of 8 rows by 5 / 0.49 levels (its GEMMs
+# and split-K convs take other tilings at other M). tp = 2 against tp = 1
+# within TP_LEVELS / TP_MEAN_LEVELS: each shard's bf16 partial
+# out-projection is rounded before the f32 sum, where one GEMM rounds once
+# (4-5 / 0.52 measured). An index, split or head fault moves the mean by
+# tens of levels.
+POOL_LEVELS = 2
+BATCH_LEVELS = 12
+BATCH_MEAN_LEVELS = 1.0
+TP_LEVELS = 12
+TP_MEAN_LEVELS = 1.0
+POOL_BATCH = 8
+DRAW_SHAPE = (8, 128, 128, 4)      # SDXL's latents at batch 8
+
+
+def _pool_shapes(tp: int = 2):
+    """K1 at the tp = 2 split's shapes: the SD1.5 UNet's attentions at
+    H / tp heads, at batch 1 and batch 8 (2 and 16 CFG rows)."""
+    return [(f"tp{tp}_b{b}_{name}", 2 * b, h // tp, tq, tk, d)
+            for b in (1, POOL_BATCH)
+            for name, _b, h, tq, tk, d, _n in ATTN_SHAPES
+            if name.startswith("unet_")]
+
 
 def _bound(ops: float, rate: float, nbytes: float) -> tuple[float, str]:
     """(bound in ms, "operations" or "bytes")."""
@@ -1290,6 +1332,9 @@ def phase_kernels():
         attn_row(*shape, 0, clip=True)
     for shape in clip_conv:
         conv_row(*shape, 0, clip=True)
+    # the pool phase's tp = 2 shards (H/2 heads), tagged apart
+    for shape in _pool_shapes():
+        attn_row(*shape, 0, pool=True)
     for name, b, hw, c, eps, launches in GN_BATCH8_SHAPES:
         # not in a batch-1 call: no launches of its per-call sums
         record_stats(name, b, hw, c, eps, 0,
@@ -1484,6 +1529,173 @@ def phase_pipeline():
     del pipe, ms
     torch.cuda.empty_cache()
     return launches
+
+
+def _generator_draw(keys, path, shape, device, dist="normal"):
+    """The draw the port made before its threefry (per-seed CPU
+    torch.Generators into pinned memory, copied without blocking), kept
+    here only to time against utils/rng.py's ``draw``."""
+    import zlib
+
+    import torch
+
+    seeds = []
+    for key in keys:
+        seed, *subs = key if isinstance(key, tuple) else (int(key),)
+        name = ":".join(str(p) for p in (*subs, *path))
+        name = f"uniform/{name}" if dist == "uniform" else name
+        seeds.append((int(seed) ^ zlib.crc32(name.encode())) & 0xFFFFFFFF)
+    device = torch.device(device)
+    out = torch.empty((len(seeds), *shape), dtype=torch.float32,
+                      pin_memory=device.type == "cuda")
+    fill = torch.rand if dist == "uniform" else torch.randn
+    for row, seed in zip(out, seeds):
+        fill(tuple(shape), generator=torch.Generator().manual_seed(seed),
+             out=row)
+    return out.to(device, non_blocking=True)
+
+
+def _levels(a, b) -> tuple[int, float]:
+    """(max, mean) |a - b| of two uint8 image batches, in levels."""
+    d = (a.int() - b.int()).abs()
+    return int(d.max()), float(d.float().mean())
+
+
+def phase_pool():
+    """The device mesh on the card: a pool of two replicas and a tp = 2
+    split on cuda:0 (and a pool over every visible GPU) against one
+    replica, with exact launches; then threefry's host cost."""
+    import torch
+
+    from gyre_tpu_torch import _build
+    from gyre_tpu_torch.models.modelset import random_preset
+    from gyre_tpu_torch.parallel import mesh as pmesh
+    from gyre_tpu_torch.parallel.pool import PooledPipeline
+    from gyre_tpu_torch.pipeline.unified import UnifiedPipeline
+    from gyre_tpu_torch.utils import rng
+
+    bf = torch.bfloat16
+    ms = random_preset("sd15", seed=0, dtype=bf, device="cuda")
+    kw = dict(REQUEST, output_dtype="uint8", chunk_steps=10,
+              stop_event=threading.Event())
+
+    def pooled(devices, tp=1):
+        mesh = pmesh.make_mesh(devices, tp=tp)
+        return PooledPipeline([UnifiedPipeline(m, compute_dtype=bf)
+                               for m in pmesh.shard_modelset(ms, mesh)])
+
+    pipes = {"one": UnifiedPipeline(ms, compute_dtype=bf),
+             "dp2": pooled(["cuda:0", "cuda:0"]),
+             "tp2": pooled(["cuda:0", "cuda:0"], tp=2)}
+    n_gpu = torch.cuda.device_count()
+    if n_gpu > 1:
+        pipes[f"dp{n_gpu}_gpus"] = pooled(None)
+    # one call's launches: K1 32 a UNet call (twice under tp = 2: each
+    # shard launches; the VAE's one head is not split) + 1 a decode, K2a
+    # and K2b 44 a UNet call + 28, once a dp group
+    k1 = {"one": 32, "dp2": 32, "tp2": 64, f"dp{n_gpu}_gpus": 32}
+    groups = {"one": 1, "dp2": 2, "tp2": 1, f"dp{n_gpu}_gpus": n_gpu}
+    failed = []
+    seeds8 = list(range(300, 300 + POOL_BATCH))
+
+    def counted(name, seeds):
+        _build.reset_launches()
+        out, host = _call(pipes[name], seeds, kw)
+        got = dict(_build.launches)
+        g = min(groups[name], len(seeds))
+        want = {"flash_attention": g * (k1[name] * STEPS + 1),
+                "gn_stats": g * (44 * STEPS + 28),
+                "gn_silu_conv3x3": g * (44 * STEPS + 28)}
+        if got != want:
+            failed.append(f"{name} at {len(seeds)}: launches {got} != {want}")
+        if tuple(out.shape) != (len(seeds), 512, 512, 3) or \
+                out.dtype != torch.uint8:
+            failed.append(f"{name}: image {tuple(out.shape)} {out.dtype}")
+        return out, host["wall_s"], got
+
+    for name, pipe in pipes.items():                     # warm-up
+        pipe(seeds=seeds8, **kw)
+    out = {}
+    for b, seeds in ((POOL_BATCH, seeds8), (1, [7])):
+        ref, walls = None, {}
+        for name in pipes:
+            if b == 1 and name not in ("one", "tp2"):
+                continue
+            img, wall, launches = counted(name, seeds)
+            walls[name] = [wall, counted(name, seeds)[1]]
+            out[f"launches_b{b}_{name}"] = launches
+            if ref is None:
+                ref = img
+                continue
+            if name.startswith("dp"):
+                # each group's rows against one replica on the same rows:
+                # the split, the threads and the gather alone
+                per = torch.cat([_call(pipes["one"], seeds[a:z], kw)[0]
+                                 for a, z in pmesh.row_groups(
+                                     len(seeds), groups[name])])
+                out[f"levels_b{b}_{name}_vs_groups"] = list(
+                    _levels(img, per))
+                out[f"levels_b{b}_one_by_groups_vs_one"] = list(
+                    _levels(per, ref))
+                if _levels(img, per)[0] > POOL_LEVELS:
+                    failed.append(f"{name} at {b}: groups")
+            mx, mean = _levels(img, ref)
+            out[f"levels_b{b}_{name}"] = [mx, mean]
+            lim = (TP_LEVELS, TP_MEAN_LEVELS) if name.startswith("tp") \
+                else (BATCH_LEVELS, BATCH_MEAN_LEVELS)
+            if mx > lim[0] or mean > lim[1]:
+                failed.append(f"{name} at {b}: {mx} / {mean:.3f} levels")
+        out[f"walls_b{b}_s"] = walls
+    emit({"phase": "pool", "mesh": {k: v for k, v in groups.items()
+                                    if k in pipes},
+          "pool_levels": POOL_LEVELS, "batch_levels": BATCH_LEVELS,
+          "batch_mean_levels": BATCH_MEAN_LEVELS, "tp_levels": TP_LEVELS,
+          "tp_mean_levels": TP_MEAN_LEVELS,
+          "k1_per_unet_call": {k: v for k, v in k1.items() if k in pipes},
+          **out})
+
+    # A2: a draw of SDXL's batch-8 latents, host time until it returns
+    # (its work queued) and until the card has it, threefry against the
+    # generators it replaced; then the batch-1 p50 with each, alternating
+    def draw_cost(fn):
+        host, ready = [], []
+        for i in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = fn(list(range(8 * i, 8 * i + 8)), ("init", 0),
+                   DRAW_SHAPE[1:], "cuda")
+            host.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            ready.append(time.perf_counter() - t0)
+        if tuple(x.shape) != DRAW_SHAPE or not bool(x.isfinite().all()):
+            failed.append(f"draw {tuple(x.shape)}")
+        return sorted(host)[2] * 1e3, sorted(ready)[2] * 1e3, \
+            float(x.std())
+
+    threefry_draw = rng.draw
+    costs = {"threefry": draw_cost(threefry_draw),
+             "generator": draw_cost(_generator_draw)}
+    p50 = {"threefry": [], "generator": []}
+    try:
+        for i in range(10):
+            which = ("threefry", "generator")[i % 2]
+            rng.draw = threefry_draw if which == "threefry" else \
+                _generator_draw
+            p50[which].append(_call(pipes["one"], [20 + i], kw)[1]["wall_s"])
+    finally:
+        rng.draw = threefry_draw
+    emit({"phase": "pool", "check": "threefry",
+          "draw_shape": list(DRAW_SHAPE),
+          **{f"draw_{k}_host_ms": v[0] for k, v in costs.items()},
+          **{f"draw_{k}_ready_ms": v[1] for k, v in costs.items()},
+          **{f"draw_{k}_std": v[2] for k, v in costs.items()},
+          "batch1_walls_s": p50,
+          **{f"batch1_p50_{k}_s": sorted(v)[len(v) // 2]
+             for k, v in p50.items()}})
+    del pipes, ms
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("pool: " + "; ".join(failed))
 
 
 # the sampler functions, each under one of its names, with its model calls
@@ -2779,7 +2991,7 @@ def phase_adjust():
         line["flipped"][name] = share
         if share > 1e-3:
             failed.append(f"{name}: {share} of the values flipped")
-    flow = I.shuffle_flow(ref.shape, torch.Generator().manual_seed(7))
+    flow = I.shuffle_flow(ref.shape, 7)
     same = bool(torch.equal(I.shuffle(ref, flow),
                             I.shuffle(ref.cuda(), flow).cpu()))
     line["shuffle_equal"] = same
@@ -5532,7 +5744,8 @@ def main() -> int:
     # what each phase leaves allocated on the card, once collected (a
     # dropped EngineManager frees its engines at once; the collection guards
     # against a cycle that would keep one)
-    for phase in (phase_samplers, phase_modes, phase_adapters, phase_hints,
+    for phase in (phase_pool, phase_samplers, phase_modes, phase_adapters,
+                  phase_hints,
                   phase_adjust, phase_hinters, phase_upscalers,
                   phase_diffusion_upscalers, phase_clip, phase_sd2,
                   phase_sdxl,
@@ -5558,12 +5771,13 @@ def main() -> int:
                 "bound_by": max(by, key=by.get)}
 
     rows, mode_rows, cn_rows, c5_rows, adj_rows = [], [], [], [], []
-    hint_rows, up_rows, clip_rows = [], [], []
+    hint_rows, up_rows, clip_rows, pool_rows = [], [], [], []
     for name, source, replaces in KERNEL_TABLE:
         rs = [r for r in kernels[name] if not r.get("modes") and
               not r.get("controlnet") and not r.get("c5") and
               not r.get("adjust") and not r.get("hinter") and
-              not r.get("upscaler") and not r.get("clip")]
+              not r.get("upscaler") and not r.get("clip") and
+              not r.get("pool")]
         adj_rs = [r for r in kernels[name] if r.get("adjust")]
         hint_rs = [r for r in kernels[name] if r.get("hinter")]
         up_rs = [r for r in kernels[name] if r.get("upscaler")]
@@ -5594,6 +5808,10 @@ def main() -> int:
         clip_rs = [r for r in kernels[name] if r.get("clip")]
         clip_rows.append({"name": name, "shapes": len(clip_rs),
                           **summary(clip_rs)})
+        pool_rs = [r for r in kernels[name] if r.get("pool")]
+        if pool_rs:                 # K1 only: tp splits no conv
+            pool_rows.append({"name": name, "shapes": len(pool_rs),
+                              **summary(pool_rs)})
     emit({"mode_shapes": mode_rows})
     emit({"controlnet_shapes": cn_rows})
     emit({"c5_shapes": c5_rows})
@@ -5606,6 +5824,7 @@ def main() -> int:
     emit({"upscaler_paths": {name: _path_sums(kernels, parts, up_calls)
                              for name, parts in _upscaler_paths().items()}})
     emit({"clip_shapes": clip_rows})
+    emit({"pool_shapes": pool_rows})
     clip_calls = _clip_calls()
     emit({"clip_paths": {name: _path_sums(kernels, parts, clip_calls)
                          for name, parts in _clip_paths().items()}})

@@ -52,11 +52,21 @@ launches = {name: 0 for name in ("flash_attention", "gn_stats",
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# the counts' own lock: a device pool launches from a thread a device, and
+# ``+= 1`` on a dict entry is a read-modify-write that can lose counts
+_count_lock = threading.Lock()
+
+
+def count_launch(name: str):
+    """Add one launch of kernel ``name``."""
+    with _count_lock:
+        launches[name] += 1
 
 
 def reset_launches():
-    for name in launches:
-        launches[name] = 0
+    with _count_lock:
+        for name in launches:
+            launches[name] = 0
 
 
 def nvcc() -> str:

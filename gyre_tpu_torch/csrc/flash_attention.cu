@@ -44,10 +44,29 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <atomic>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
+
+// Applies ``set`` (a kernel's function attributes) once per device, from
+// any thread: one atomic flag a device. Threads that race on a device's
+// first launch each apply the same attributes, which cudaFuncSetAttribute
+// allows (a device pool launches from a host thread a device).
+constexpr int kMaxDevices = 64;
+
+template <typename Set>
+cudaError_t once_per_device(std::atomic<bool>* done, Set set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = set();
+  if (err == cudaSuccess) done[dev].store(true, std::memory_order_release);
+  return err;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -337,14 +356,12 @@ cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
                    cudaStream_t stream) {
   using F = Flash<DP, DV, BK, QREGS, NW>;
   auto kernel = flash_fwd_kernel<DP, DV, BK, QREGS, NW>;
-  static int configured = -1;  // the shared-memory limit, once per device
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess && configured != dev) {
-    err = cudaFuncSetAttribute(
+  // the shared-memory limit, once per device
+  static std::atomic<bool> configured[kMaxDevices];
+  cudaError_t err = once_per_device(configured, [&] {
+    return cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(F::kSmem));
-    if (err == cudaSuccess) configured = dev;
-  }
+  });
   if (err != cudaSuccess) return err;
   dim3 grid((tq + F::BQ - 1) / F::BQ, batch * heads, DP / DV);
   kernel<<<grid, F::kThreads, F::kSmem, stream>>>(q, k, v, o, heads, tq, tk, d,

@@ -49,11 +49,30 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <atomic>
 #include <stdint.h>
 
 namespace cg = cooperative_groups;
 
 namespace {
+
+// Applies ``set`` (a kernel's function attributes) once per device, from
+// any thread: one atomic flag a device. Threads that race on a device's
+// first launch each apply the same attributes, which cudaFuncSetAttribute
+// allows (a device pool launches from a host thread a device).
+constexpr int kMaxDevices = 64;
+
+template <typename Set>
+cudaError_t once_per_device(std::atomic<bool>* done, Set set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = set();
+  if (err == cudaSuccess) done[dev].store(true, std::memory_order_release);
+  return err;
+}
 
 constexpr int BM = 128;        // output pixels per block
 constexpr int BKC = 64;        // input channels per chunk (128 B a pixel)
@@ -448,17 +467,15 @@ cudaError_t launch(const __nv_bfloat16* x, const float* a, const float* b,
   auto kernel = gn_silu_conv3x3_kernel<TW>;
   // the function's attributes, once per device (host time counts at the
   // small levels, where a launch takes tens of microseconds)
-  static int configured = -1;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess && configured != dev) {
-    err = cudaFuncSetAttribute(
+  static std::atomic<bool> configured[kMaxDevices];
+  cudaError_t err = once_per_device(configured, [&] {
+    cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err == cudaSuccess)  // clusters of more than 8 blocks
-      err = cudaFuncSetAttribute(
+    if (e == cudaSuccess)  // clusters of more than 8 blocks
+      e = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err == cudaSuccess) configured = dev;
-  }
+    return e;
+  });
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(unsigned((co + BN - 1) / BN), unsigned(m_tiles),

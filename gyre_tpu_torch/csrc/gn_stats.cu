@@ -49,12 +49,31 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <atomic>
 #include <math.h>
 #include <stdint.h>
 
 namespace cg = cooperative_groups;
 
 namespace {
+
+// Applies ``set`` (a kernel's function attributes) once per device, from
+// any thread: one atomic flag a device. Threads that race on a device's
+// first launch each apply the same attributes, which cudaFuncSetAttribute
+// allows (a device pool launches from a host thread a device).
+constexpr int kMaxDevices = 64;
+
+template <typename Set>
+cudaError_t once_per_device(std::atomic<bool>* done, Set set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = set();
+  if (err == cudaSuccess) done[dev].store(true, std::memory_order_release);
+  return err;
+}
 
 constexpr int kMaxSlab = 512;     // channels of a slab (64 vectors)
 constexpr int kMaxCluster = 16;   // non-portable above 8
@@ -253,18 +272,16 @@ cudaError_t launch(const uint4* x, const float* gamma, const float* beta,
   auto kernel = gn_stats_kernel<kThreads>;
   // the function's attributes, once per device (host time counts here: most
   // launches take a few microseconds on the card)
-  static int configured = -1;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess && configured != dev) {
-    err = cudaFuncSetAttribute(
+  static std::atomic<bool> configured[kMaxDevices];
+  cudaError_t err = once_per_device(configured, [&] {
+    cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         int(kRed + kMaxInbox * sizeof(double2)));
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err == cudaSuccess) configured = dev;
-  }
+    return e;
+  });
   if (err != cudaSuccess) return err;
   const int slab = c / slabs;
   const int owned = (slab / cpg + cluster - 1) / cluster * cpg;

@@ -23,6 +23,16 @@ CoalescingDispatcher (manager/scheduler.py, the port's copy of the JAX
 package's): its single thread owns the card and merges compatible
 concurrent requests into one batch.
 
+With a device mesh (``mesh``, parallel/mesh.py; the server's ``--tp`` and
+several GPUs) each generate engine's ModelSet is sharded into one replica a
+dp group (``replicas``), and its pipeline is a PooledPipeline
+(parallel/pool.py) that splits every merged batch's samples over the
+groups below the dispatcher, as the JAX package's mesh sits below its
+dispatcher. What a group's rows touch sits on its devices: its replica,
+the graft engine's replica, the request's hint models and the engine's
+CLIP model (placed at first use), adapters folded into every replica.
+Task engines and the safety checker stay on the first device.
+
 LoRA/TI adapters fold into a view of an engine (``adapted_pipeline``,
 bounded cache), with a DispatchView of its own so that the dispatcher never
 merges adapted and plain requests. ``hintset_id`` entries name the hint
@@ -143,7 +153,8 @@ class EngineManager:
     def __init__(self, engine_specs, device="cuda",
                  compute_dtype=torch.bfloat16, batch_max: int = 4,
                  weight_resolver=None, interleave: int = 2,
-                 gather_ms: float = 10.0, watchdog_s: float = 900.0):
+                 gather_ms: float = 10.0, watchdog_s: float = 900.0,
+                 mesh=None):
         entries = [s for s in engine_specs if isinstance(s, dict)]
         hintset_entries = [e for e in entries if "hintset_id" in e]
         # model_id entries: the shared model registry "@ref"s resolve
@@ -157,7 +168,11 @@ class EngineManager:
             for s in engine_specs
             if isinstance(s, EngineSpec) or (isinstance(s, dict) and
                                              s.get("id"))]
-        self.device = torch.device(device)
+        # a mesh's first device holds the base ModelSets, the task engines
+        # and the safety checker
+        self.mesh = mesh
+        self.device = mesh.homes[0] if mesh is not None else \
+            torch.device(device)
         self.compute_dtype = compute_dtype
         self.batch_max = batch_max
         self._weight_resolver = weight_resolver
@@ -171,6 +186,7 @@ class EngineManager:
         # url artifacts resolve through it (server.serve sets it)
         self.resources = None
         self._modelsets: dict[str, ModelSet] = {}
+        self._replicas: dict[str, list] = {}
         self._pipelines: dict[str, UnifiedPipeline] = {}
         self._views: dict[str, DispatchView] = {}
         # adapted views (LoRA/TI folded in), oldest first
@@ -326,7 +342,22 @@ class EngineManager:
                         self._weights_kind.get(fb, "pending")
         return self._modelsets[engine_id]
 
-    def pipeline(self, engine_id: str) -> UnifiedPipeline:
+    def replicas(self, engine_id: str) -> list:
+        """The engine's ModelSet on each dp group of the mesh
+        (parallel/mesh.py's ``shard_modelset``): a group on the base's own
+        device shares its replicated weights."""
+        if engine_id not in self._replicas:
+            with self._load_lock:
+                if engine_id not in self._replicas:
+                    from ..parallel import mesh as pmesh
+
+                    self._replicas[engine_id] = pmesh.shard_modelset(
+                        self.modelset(engine_id), self.mesh)
+        return self._replicas[engine_id]
+
+    def pipeline(self, engine_id: str):
+        """The engine's UnifiedPipeline, or with a mesh its PooledPipeline
+        over one UnifiedPipeline a dp group."""
         if engine_id not in self._pipelines:
             with self._load_lock:
                 if engine_id in self._pipelines:
@@ -335,10 +366,6 @@ class EngineManager:
                 # `graft:` names the engine whose UNet is grafted on top
                 graft_id = spec.params.get("graft") or \
                     (spec.options or {}).get("graft")
-                pipe = UnifiedPipeline(
-                    self.modelset(engine_id),
-                    compute_dtype=self.compute_dtype,
-                    graft_ms=self.modelset(graft_id) if graft_id else None)
                 # `clip:` -> the CLIP model of guidance and style hints,
                 # loaded at the first such request (adapted views copy
                 # the source)
@@ -346,11 +373,33 @@ class EngineManager:
                     spec.params.get("clip_model")
                 if clip_ref is None and isinstance(spec.model, dict):
                     clip_ref = spec.model.get("clip")
-                if clip_ref:
-                    pipe.clip_source = (
-                        lambda ref=clip_ref: self.clip_model(ref))
+                if self.mesh is None:
+                    pipe = self._unified(self.modelset(engine_id),
+                                         self.modelset(graft_id)
+                                         if graft_id else None, clip_ref)
+                else:
+                    from ..parallel import mesh as pmesh
+                    from ..parallel.pool import PooledPipeline
+
+                    grafts = self.replicas(graft_id) if graft_id else \
+                        [None] * len(self.mesh.grid)
+                    pipe = PooledPipeline([
+                        self._unified(ms, gms, clip_ref, lambda tree, d=(
+                            ms.device): pmesh.place(tree, d))
+                        for ms, gms in zip(self.replicas(engine_id),
+                                           grafts)])
                 self._pipelines[engine_id] = pipe
         return self._pipelines[engine_id]
+
+    def _unified(self, ms, graft_ms, clip_ref, place=None):
+        pipe = UnifiedPipeline(ms, compute_dtype=self.compute_dtype,
+                               graft_ms=graft_ms)
+        if clip_ref:
+            if place is None:
+                pipe.clip_source = lambda: self.clip_model(clip_ref)
+            else:
+                pipe.clip_source = lambda: place(self.clip_model(clip_ref))
+        return pipe
 
     def dispatch_view(self, engine_id: str) -> DispatchView:
         """The engine's pipeline as the dispatcher runs it; one per engine,
@@ -402,9 +451,23 @@ class EngineManager:
             solo=True).result()
 
     def _build_adapted(self, key, base, engine_id, deltas, embeddings):
+        if hasattr(base, "pipes"):       # a pool: fold into every replica
+            view = DispatchView(base.derive([
+                self._fold(p.ms, engine_id, deltas, embeddings)
+                for p in base.pipes]))
+        else:
+            view = DispatchView(base.derive(
+                self._fold(base.ms, engine_id, deltas, embeddings)))
+        if len(self._adapted) >= 8:           # bounded: drop the oldest
+            self._adapted.pop(next(iter(self._adapted)))
+        self._adapted[key] = view
+        return view
+
+    @staticmethod
+    def _fold(ms, engine_id, deltas, embeddings):
+        """``ms`` with the adapters folded in (a new ModelSet)."""
         from ..pipeline import lora as lora_mod
 
-        ms = base.ms
         unet_p, text_p = ms.unet_params, list(ms.text_params)
         tokenizer = ms.tokenizer
         # no_grad, not inference_mode: a guided request saves these leaves
@@ -412,18 +475,14 @@ class EngineManager:
         with torch.no_grad():
             for d in deltas:
                 unet_p, text_p, n = lora_mod.fold_deltas(unet_p, text_p, d)
-                logger.info("lora applied to %s: %d modules", engine_id, n)
+                logger.info("lora applied to %s on %s: %d modules",
+                            engine_id, ms.device, n)
             if embeddings:
                 text_p, tokenizer = lora_mod.apply_textual_inversions(
                     dataclasses.replace(ms, text_params=text_p), embeddings)
-        new_ms = dataclasses.replace(
+        return dataclasses.replace(
             ms, unet_params=unet_p, text_params=text_p, tokenizer=tokenizer,
             id=f"{ms.id}+adapters")
-        view = DispatchView(base.derive(new_ms))
-        if len(self._adapted) >= 8:           # bounded: drop the oldest
-            self._adapted.pop(next(iter(self._adapted)))
-        self._adapted[key] = view
-        return view
 
     @contextmanager
     def with_engine(self, engine_id: str | None = None, loras=None,
@@ -979,7 +1038,9 @@ class EngineManager:
             if stats else 0
         free = max(limit - used, 1 << 30)
         per_image = self._probe_bytes_per_image(engine_id, height, width)
-        return max(1, min(int(free / per_image), 64))
+        # a mesh's merged rows spread over its dp groups' cards
+        groups = len(set(self.mesh.homes)) if self.mesh is not None else 1
+        return max(1, min(int(free / per_image) * groups, 64))
 
     def _probe_bytes_per_image(self, engine_id: str, height: int,
                                width: int) -> float:
@@ -988,19 +1049,21 @@ class EngineManager:
         its peak allocation above what was allocated before it, with a
         25 % margin for the sampler's carry and the allocator (the CUDA
         counterpart of the JAX package's XLA memory analysis). On the CPU:
-        the JAX package's config-scaled estimate. Cached per (engine,
-        size)."""
+        the JAX package's config-scaled estimate. With a mesh, each dp
+        group's replica is probed on its home device, each logged, and the
+        largest kept. Cached per (engine, size)."""
         key = (engine_id, height, width)
         if key in self._probes:
             return self._probes[key]
         from ..models import unet as unet_mod
 
-        ms = self.pipeline(engine_id).ms
-        ucfg = ms.config.unet
+        pipe = self.pipeline(engine_id)
+        mss = [p.ms for p in getattr(pipe, "pipes", [pipe])]
+        ucfg = mss[0].config.unet
         cdt = self.compute_dtype
         if self.device.type == "cuda":
-            def probe():
-                dev = self.device
+            def probe(ms):
+                dev = ms.device
                 x = torch.randn((2, height // 8, width // 8,
                                  ucfg.in_channels), device=dev, dtype=cdt)
                 t = torch.full((2,), 500.0, device=dev)
@@ -1022,8 +1085,13 @@ class EngineManager:
                 torch.cuda.synchronize(dev)
                 return torch.cuda.max_memory_allocated(dev) - base
 
-            per = 1.25 * self.dispatcher.submit(probe, {},
-                                                solo=True).result()
+            by_dev = {}
+            for ms in mss:
+                by_dev[str(ms.device)] = 1.25 * self.dispatcher.submit(
+                    lambda ms=ms: probe(ms), {}, solo=True).result()
+            logger.info("bytes an image of %s at %dx%d by device: %s",
+                        engine_id, width, height, by_dev)
+            per = max(by_dev.values())
         else:
             # ~12 live level-0-sized activation maps per CFG row
             c0 = ucfg.block_out_channels[0]
@@ -1054,6 +1122,13 @@ class EngineManager:
             return False
         return ms.config.unet.in_channels in (4, 5, 9)
 
+    def engine_devices(self, spec) -> list[str]:
+        """The devices an engine runs on: a generate engine's every mesh
+        device once its replicas exist, else the first device."""
+        if spec.id in self._replicas:
+            return [str(d) for d in self.mesh.devices]
+        return [str(self.device)]
+
     def status(self) -> list[dict]:
         return [
             {"id": s.id, "name": s.name, "task": s.task,
@@ -1062,7 +1137,8 @@ class EngineManager:
              "visible": s.visible,
              # "real" = checkpoint loaded, "random" = random weights
              # (loud), "pending" = not yet built
-             "weights": self._weights_kind.get(s.id, "pending")}
+             "weights": self._weights_kind.get(s.id, "pending"),
+             "devices": self.engine_devices(s)}
             for s in self.specs
         ]
 

@@ -48,19 +48,35 @@ def param_specs(cfg: CLIPTextConfig) -> Params:
     return p
 
 
-def _block(p, x, heads, act):
-    b, t, d = x.shape
+def _self_attention(p, h, heads, mask=None):
+    """Self-attention of a block's ``attn`` params; split weights
+    (``L.Shards``, parallel/mesh.py) run shard by shard."""
+    if isinstance(p["q"]["w"], L.Shards):
+        return L.tp_attention(p, h, h, heads, mask=mask)
+    b, t, d = h.shape
     hd = d // heads
-    h = L.layer_norm(p["ln1"], x)
-    q = L.linear(p["attn"]["q"], h).reshape(b, t, heads, hd)
-    k = L.linear(p["attn"]["k"], h).reshape(b, t, heads, hd)
-    v = L.linear(p["attn"]["v"], h).reshape(b, t, heads, hd)
+    q = L.linear(p["q"], h).reshape(b, t, heads, hd)
+    k = L.linear(p["k"], h).reshape(b, t, heads, hd)
+    v = L.linear(p["v"], h).reshape(b, t, heads, hd)
+    return L.linear(p["out"], L.attention(q, k, v, mask=mask).reshape(b, t,
+                                                                      d))
+
+
+def _mlp(p, h, act):
+    def hidden(p_in, x):
+        return act(L.linear(p_in, x))
+
+    if isinstance(p["fc1"]["w"], L.Shards):
+        return L.tp_mlp(p["fc1"], p["fc2"], h, hidden)
+    return L.linear(p["fc2"], hidden(p["fc1"], h))
+
+
+def _block(p, x, heads, act):
+    t = x.shape[1]
     causal = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
-    o = L.attention(q, k, v, mask=causal[None, None]).reshape(b, t, d)
-    x = x + L.linear(p["attn"]["out"], o)
-    h = L.layer_norm(p["ln2"], x)
-    h = L.linear(p["fc2"], act(L.linear(p["fc1"], h)))
-    return x + h
+    x = x + _self_attention(p["attn"], L.layer_norm(p["ln1"], x), heads,
+                            mask=causal[None, None])
+    return x + _mlp(p, L.layer_norm(p["ln2"], x), act)
 
 
 def apply(params: Params, cfg: CLIPTextConfig, input_ids, dtype=None):
@@ -158,17 +174,8 @@ def random_vision(cfg: CLIPVisionConfig = CLIP_VISION_L, seed: int = 0,
 
 def _vision_block(p, x, heads, act):
     """Non-causal transformer block (the text blocks' params layout)."""
-    b, t, d = x.shape
-    hd = d // heads
-    h = L.layer_norm(p["ln1"], x)
-    q = L.linear(p["attn"]["q"], h).reshape(b, t, heads, hd)
-    k = L.linear(p["attn"]["k"], h).reshape(b, t, heads, hd)
-    v = L.linear(p["attn"]["v"], h).reshape(b, t, heads, hd)
-    o = L.attention(q, k, v).reshape(b, t, d)
-    x = x + L.linear(p["attn"]["out"], o)
-    h = L.layer_norm(p["ln2"], x)
-    h = L.linear(p["fc2"], act(L.linear(p["fc1"], h)))
-    return x + h
+    x = x + _self_attention(p["attn"], L.layer_norm(p["ln1"], x), heads)
+    return x + _mlp(p, L.layer_norm(p["ln2"], x), act)
 
 
 def preprocess_image(images):

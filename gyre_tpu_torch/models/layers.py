@@ -115,6 +115,71 @@ def attention(q, k, v, mask=None, scale: float | None = None):
     return attn_ops.attention(q, k, v, mask=mask, scale=scale)
 
 
+class Shards(tuple):
+    """A tensor-parallel leaf (parallel/mesh.py): one tensor per tp device,
+    shard i on the i-th device of its dp group."""
+
+
+def _tp_part(w, x, dtype, home):
+    """A shard's partial product on its device, in f32 on the home device:
+    the partials add in f32 and round to the compute dtype once."""
+    return F.linear(x, w.to(dtype)).to(home).float()
+
+
+def tp_attention(p: Params, x, ctx, heads: int, mask=None):
+    """Attention whose q/k/v/out weights are ``Shards``: shard i computes
+    heads/tp whole heads on its own device (q, k, v split by output rows,
+    out by input columns), each shard's out-projection is a partial sum,
+    the partials are added in f32 on x's device in shard order, with the
+    replicated out bias once, and rounded to x's dtype. ``ctx is x`` for
+    self-attention. x [B,T,C], ctx [B,S,Cc]."""
+    b, t, c = x.shape
+    s = ctx.shape[1]
+    home, dtype = x.device, x.dtype
+    n = len(p["q"]["w"])
+    hs = heads // n
+    out = None
+    for i, wq in enumerate(p["q"]["w"]):
+        dev = wq.device
+        xs = x.to(dev)
+        cs = xs if ctx is x else ctx.to(dev)
+
+        def proj(name, inp, rows):
+            bias = p[name].get("b")
+            return F.linear(inp, p[name]["w"][i].to(dtype),
+                            None if bias is None else bias[i].to(dtype)
+                            ).reshape(b, rows, hs, -1)
+
+        o = attention(proj("q", xs, t), proj("k", cs, s), proj("v", cs, s),
+                      mask=None if mask is None else mask.to(dev))
+        part = _tp_part(p["out"]["w"][i], o.reshape(b, t, -1), dtype, home)
+        out = part if out is None else out + part
+    if "b" in p["out"]:
+        out = out + p["out"]["b"].float()
+    return out.to(dtype)
+
+
+def tp_mlp(p_in: Params, p_out: Params, x, hidden):
+    """A two-layer MLP whose weights are ``Shards``: shard i applies
+    ``hidden(p_in shard i, x)`` (the first layer and its activation, split
+    by output: a GEGLU's value and gate halves each split, so a shard holds
+    matching pairs) and the second layer split by input, on its own device;
+    the partials are added in f32 on x's device in shard order, with the
+    replicated output bias once, and rounded to x's dtype."""
+    home, dtype = x.device, x.dtype
+    out = None
+    for i, w in enumerate(p_in["w"]):
+        shard = {"w": w}
+        if "b" in p_in:
+            shard["b"] = p_in["b"][i]
+        part = _tp_part(p_out["w"][i], hidden(shard, x.to(w.device)), dtype,
+                        home)
+        out = part if out is None else out + part
+    if "b" in p_out:
+        out = out + p_out["b"].float()
+    return out.to(dtype)
+
+
 def gn_silu_conv3x3(norm_p: Params, conv_p: Params, x, groups: int,
                     eps: float):
     """GroupNorm -> SiLU -> 3x3 conv of a resnet block, through the fused

@@ -63,7 +63,7 @@ def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
-    elif isinstance(tree, list):
+    elif isinstance(tree, (list, L.Shards)):
         for v in tree:
             yield from _leaves(v)
     else:

@@ -21,7 +21,9 @@ while its first stays on K2a + K2b). ControlNet residuals
 (``down_residuals``, ``mid_residual``) and T2I-adapter features
 (``adapter_states``) are added as in the JAX package, and ``tome_ratio``
 merges the self-attentions' tokens (ops/tome.py; the merged attention is
-still K1's).
+still K1's). Under tensor parallelism (parallel/mesh.py) the attentions
+and GEGLU feed-forwards whose weights are split run shard by shard, each
+shard's K1 at its own heads.
 """
 
 from __future__ import annotations
@@ -182,7 +184,11 @@ def _resnet(p, x, temb, groups, tiling=(False, False)):
 
 
 def _attn(p, x, ctx, heads):
-    """x [B,T,C]; ctx [B,S,Cc], or x itself for self-attention."""
+    """x [B,T,C]; ctx [B,S,Cc], or x itself for self-attention. Weights
+    split over tp devices (``L.Shards``) run each shard's whole heads on
+    its device (``L.tp_attention``)."""
+    if isinstance(p["q"]["w"], L.Shards):
+        return L.tp_attention(p, x, ctx, heads)
     b, t, c = x.shape
     d = c // heads
     s = ctx.shape[1]
@@ -203,6 +209,8 @@ def _tblock(p, x, ctx, heads, tome_ratio: float = 0.0):
     h = L.layer_norm(p["ln2"], x)
     x = x + _attn(p["attn2"], h, ctx, heads)
     h = L.layer_norm(p["ln3"], x)
+    if isinstance(p["ff1"]["w"], L.Shards):
+        return x + L.tp_mlp(p["ff1"], p["ff2"], h, L.geglu)
     return x + L.linear(p["ff2"], L.geglu(p["ff1"], h))
 
 

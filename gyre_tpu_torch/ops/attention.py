@@ -109,7 +109,7 @@ def _flash(q, k, v, scale: float):
             *strides(q), *strides(k), *strides(v), *strides(out),
             float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attention")
-    _build.launches["flash_attention"] += 1
+    _build.count_launch("flash_attention")
     return out
 
 

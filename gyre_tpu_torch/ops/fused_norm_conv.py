@@ -155,7 +155,7 @@ def gn_affine(x, gn_scale, gn_bias, groups: int, eps: float):
             ab.data_ptr(), bsz, h * w, c, groups, slabs, cluster, threads,
             float(eps), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "gn_stats")
-    _build.launches["gn_stats"] += 1
+    _build.count_launch("gn_stats")
     return ab[0], ab[1]
 
 
@@ -188,7 +188,7 @@ def affine_silu_conv3x3(x, a, b, w, conv_bias):
             conv_bias.data_ptr(), out.data_ptr(), bsz, h, wd, c, co,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "gn_silu_conv3x3")
-    _build.launches["gn_silu_conv3x3"] += 1
+    _build.count_launch("gn_silu_conv3x3")
     return out
 
 

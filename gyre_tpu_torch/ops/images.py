@@ -17,8 +17,8 @@ has none): ``normalise``, ``gaussian_blur`` (edge-replicated, separable),
 and the adjustments' ops (services/adjustments.py): ``levels``,
 ``invert``, ``channelmap``, ``directionalblur``, ``crop``, ``autoscale``,
 ``sobel_edges``, ``canny_edge``, ``normalmap_from_depthmap``,
-``palletize``, ``quantize``, ``shuffle`` (its flow drawn apart by
-``shuffle_flow``, so that a test can give it the JAX package's),
+``palletize``, ``quantize``, ``shuffle`` (its flow the JAX package's
+threefry draw, ``shuffle_flow``),
 ``infill``, ``frequency_blend``, ``box_sum``, ``guided_filter`` and
 ``tv_denoise``.
 """
@@ -32,6 +32,8 @@ import zlib
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..utils import rng
 
 
 def pil_image():
@@ -349,13 +351,14 @@ def quantize(img, threshold=0.5):
     return (img > threshold).to(img.dtype)
 
 
-def shuffle_flow(shape, generator, tile: int = 64):
+def shuffle_flow(shape, seed: int, tile: int = 64):
     """The content shuffle's random flow for an image of ``shape``
-    [B,H,W,C]: [B, H // tile + 1, W // tile + 1, 2] standard normal, drawn
-    on the CPU from ``generator``."""
+    [B,H,W,C]: [B, H // tile + 1, W // tile + 1, 2] standard normal on the
+    CPU, the JAX package's draw from the first half of the split of
+    ``PRNGKey(seed)``."""
     b, h, w, _ = shape
-    return torch.randn((b, h // tile + 1, w // tile + 1, 2),
-                       generator=generator)
+    key = rng.split(rng.key_for_seed(seed))[0]
+    return rng.normal(key, (b, h // tile + 1, w // tile + 1, 2))
 
 
 def shuffle(img, flow, tile: int = 64):

@@ -17,11 +17,10 @@ The guided step takes ``torch.autograd.grad`` of the loss through the
 denoiser: the UNet, the VAE decoder and the vision tower run their kernels
 (K1, K2a, K2b) in the forward pass, and their recompute backward rules
 (ops/attention.py's FlashGrad, ops/fused_norm_conv.py's GnSiluConvGrad) in
-the backward. The crops draw their offsets through utils/rng.py with the
-JAX package's stream names ``clip_cuts_rgb`` and ``clip_cuts_vae``
-(``cutout_offsets``, the one seam where a test puts the JAX package's
-offsets in); torch cannot reproduce JAX's keys, so the same seed crops
-elsewhere in the two packages.
+the backward. The crops draw their offsets as the JAX package draws them,
+from utils/rng.py's threefry keys of the streams ``clip_cuts_rgb`` and
+``clip_cuts_vae`` (``cutout_offsets``), so a seed crops where it crops
+there.
 """
 
 from __future__ import annotations
@@ -70,19 +69,24 @@ def approx_decode(latents):
 def cutout_offsets(keys, stream: str, num_cutouts: int, h: int, w: int,
                    cut_size: int, cut_power: float = 1.0) -> np.ndarray:
     """[B, num_cutouts, 2] int (top, left) of each sample's crops, drawn as
-    the JAX package draws them: a crop size from (min_side - cut_size) *
-    u^cut_power + cut_size, clipped to [8, min_side], and offsets uniform in
-    [0, max(side - size, 1)); three uniforms a crop from ``keys`` and
-    ``stream`` (utils/rng.py), the same at every step of a request."""
+    the JAX package draws them: crop i of a sample from its key's
+    ``stream`` with i folded in, split in three; a size of (min_side -
+    cut_size) * u^cut_power + cut_size (f32), clipped to [8, min_side],
+    and offsets ``randint`` in [0, max(side - size, 1)). The same at every
+    step of a request."""
     min_side = min(h, w)
-    u = rng.draw(keys, (stream,), (num_cutouts, 3), "cpu",
-                 dist="uniform").numpy()
-    size = (u[..., 0] ** cut_power * (min_side - cut_size) +
-            cut_size).astype(np.int64)
-    size = np.clip(size, 8, min_side)
-    oy = np.floor(u[..., 1] * np.maximum(h - size, 1)).astype(np.int64)
-    ox = np.floor(u[..., 2] * np.maximum(w - size, 1)).astype(np.int64)
-    return np.stack([oy, ox], axis=-1)
+    out = np.zeros((len(keys), num_cutouts, 2), np.int64)
+    for b, key in enumerate(keys):
+        base = rng.threefry_key(key, (stream,))
+        for i in range(num_cutouts):
+            k1, k2, k3 = rng.split(rng.fold_in(base, i), 3)
+            frac = rng.uniform_scalar(k1) ** np.float32(cut_power)
+            size = int((frac * np.float32(min_side - cut_size) +
+                        np.float32(cut_size)).astype(np.int32))
+            size = min(max(size, 8), min_side)
+            out[b, i] = (rng.randint(k2, 0, max(h - size, 1)),
+                         rng.randint(k3, 0, max(w - size, 1)))
+    return out
 
 
 def make_cutouts(images, keys, num_cutouts: int, cut_size: int,

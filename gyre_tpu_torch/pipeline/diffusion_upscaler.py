@@ -21,7 +21,7 @@ the JAX module does.
 
 Noise: every draw goes through ``utils.rng`` with the JAX package's stream
 names ("init" and "lowres_aug" at step 0, the sampler's by global step),
-so a test injects the JAX package's draws at ``rng.draw``.
+so a seed draws the JAX package's noise.
 """
 
 from __future__ import annotations

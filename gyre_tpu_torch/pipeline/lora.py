@@ -34,6 +34,8 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from ..models import layers as L
+
 # ------------------------------------------------------- format detection
 
 
@@ -354,7 +356,17 @@ def fold_deltas(unet_params, text_params_list, deltas):
     new_te = list(text_params_list)
     for which, path, delta in deltas:
         tree = new_unet if which == "unet" else new_te[0]
-        new_leaf = fold_leaf(_tree_get(tree, path + ("w",)), delta)
+        leaf = _tree_get(tree, path + ("w",))
+        if isinstance(leaf, L.Shards):
+            # a tensor-parallel leaf: the delta split as the leaf was
+            from ..parallel import mesh as pmesh
+
+            wpath = path + ("w",)
+            new_leaf = L.Shards(fold_leaf(s, d) for s, d in zip(
+                leaf, pmesh.split_leaf(wpath, delta, pmesh.leaf_spec(wpath),
+                                       len(leaf))))
+        else:
+            new_leaf = fold_leaf(leaf, delta)
         if which == "unet":
             new_unet = _tree_set(new_unet, path + ("w",), new_leaf)
         else:

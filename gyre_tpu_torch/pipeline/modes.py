@@ -39,9 +39,12 @@ def txt2img_initial(seeds, shape, sigma_max: float, device,
     border draws from an independent stream."""
     h, w, c = shape
     if not natural or (h == natural and w == natural):
-        return rng.batched_normal(seeds, "init", shape, device) * sigma_max
-    base = rng.batched_normal(seeds, "init", (natural, natural, c), device)
-    canvas = rng.batched_normal(seeds, "init_border", shape, device)
+        return rng.batched_stream_normal(seeds, "init", 0, shape,
+                                         device) * sigma_max
+    base = rng.batched_stream_normal(seeds, "init", 0, (natural, natural, c),
+                                     device)
+    canvas = rng.batched_stream_normal(seeds, "init_border", 0, shape,
+                                       device)
     sy, sx = max(0, (natural - h) // 2), max(0, (natural - w) // 2)
     ty, tx = max(0, (h - natural) // 2), max(0, (w - natural) // 2)
     ch, cw = min(h, natural), min(w, natural)

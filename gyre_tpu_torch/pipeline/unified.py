@@ -70,8 +70,6 @@ guided, as in the JAX package.
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
@@ -95,16 +93,17 @@ def make_noise_fn(seeds, sigmas, shape, noise_type: str, device):
     f32 on ``device``, row b from seeds[b] (a seed, or a key of
     utils/rng.py) alone. "normal" keys a draw by the GLOBAL step index i
     (a chunked run draws what one run draws); "brownian" keys it by the
-    step's quantised log sigma, int(log(max(sigma, 1e-6)) * 256), so a
-    request draws the same noise at the same sigma whatever its step
-    count."""
+    step's quantised log sigma, int(log(max(sigma, 1e-6)) * 256) in f32
+    as the JAX package computes it, so a request draws the same noise at
+    the same sigma whatever its step count."""
     if noise_type not in ("normal", "brownian"):
         raise ValueError(f"unknown noise_type {noise_type!r}")
 
     def noise_fn(i, tag):
         key = i
         if noise_type == "brownian":
-            key = int(math.log(max(float(sigmas[i]), 1e-6)) * 256.0)
+            s = np.maximum(np.float32(sigmas[i]), np.float32(1e-6))
+            key = int(np.log(s) * np.float32(256.0))
         return rng.batched_stream_normal(seeds, tag, key, shape, device)
 
     return noise_fn

@@ -7,7 +7,8 @@
 Serves gooseai.GenerationService (Generate, ChainGenerate and the Async
 trio), gooseai.EnginesService and gooseai.DashboardService over gRPC, and
 the HTTP router (http/router.py: Stability REST, the JSON gateway,
-gRPC-Web, /status, /log, static files and reverse proxies) on one device.
+gRPC-Web, /status, /log, static files and reverse proxies) on one device
+or a mesh of them.
 The flags are the JAX server's (gyre_tpu/server.py), with its names,
 ``SD_*`` environment variables and defaults: --enginecfg names an
 engines.yaml in the DSL (default ``config/engines.yaml``; one random-weight
@@ -15,8 +16,13 @@ SD 1.5 engine when the file is missing), --weight_root the directories
 model references resolve in, --save_safetensors ENGINE_ID:PATH exports an
 engine and exits, --access_token guards both servers. --device defaults to
 cuda and refuses to start without a CUDA device; --device cpu runs the same
-path on the CPU (for tests at small presets). The JAX server's TPU flags
-(--platform, --tp) are not the port's. --nsfw_behaviour block exits with
+path on the CPU (for tests at small presets). --tp (``SD_TP``, default 1)
+is the tensor-parallel width of the device mesh, as in the JAX server:
+with --device cuda and more than one visible GPU, or with --tp > 1, the
+engines run on a mesh (parallel/mesh.py) over every visible GPU, tp GPUs a
+dp group; --device cuda:N or cpu keeps that one device unless --tp > 1,
+which puts all tp shards on it (the CPU tests' layout). The JAX server's
+--platform is not the port's. --nsfw_behaviour block exits with
 code 2 unless engines.yaml configures a trained safety checker (a
 ``task: safety`` engine or a ``safety_checker:`` key), as the JAX server
 does; flag without one flags nothing.
@@ -124,6 +130,9 @@ def parse_args(argv=None):
     dev = p.add_argument_group("device")
     dev.add_argument("--device", type=str, default="cuda",
                      help="torch device the engines run on")
+    dev.add_argument("--tp", type=int,
+                     default=int(os.environ.get("SD_TP", 1)),
+                     help="tensor-parallel width of the device mesh")
     dev.add_argument("--dtype", type=str, default="bfloat16",
                      choices=["bfloat16", "float32"])
     dev.add_argument("--hbm_optimisation_level", "-V", type=int,
@@ -230,11 +239,33 @@ def resolve_enginecfg(path: str) -> str:
     return path
 
 
+def build_mesh(args):
+    """The device mesh of --device and --tp (parallel/mesh.py), or None
+    for one device: --device cuda with several visible GPUs, or --tp > 1,
+    makes one; cuda meshes every visible GPU, cuda:N and cpu repeat that
+    device tp times. A mesh that cannot be made is logged and the server
+    runs on one device, as the JAX server does."""
+    import torch
+
+    from .parallel import mesh as pmesh
+
+    device = torch.device(args.device)
+    tp = max(int(args.tp or 1), 1)
+    whole = device.type == "cuda" and device.index is None
+    if not (tp > 1 or (whole and torch.cuda.device_count() > 1)):
+        return None
+    try:
+        return pmesh.make_mesh(None if whole else [device] * tp, tp=tp)
+    except AssertionError as e:
+        logger.warning("mesh init failed (%s); single device", e)
+        return None
+
+
 def build_manager(args):
     """The EngineManager of parsed arguments: engine entries from
     --enginecfg (with the hbm/vram include flags of -V), filtered by
-    --engine_id, on --device in --dtype, weights resolved under
-    --weight_root."""
+    --engine_id, on --device (or the mesh of --device and --tp) in
+    --dtype, weights resolved under --weight_root."""
     import torch
 
     from .manager import engines_yaml
@@ -273,11 +304,15 @@ def build_manager(args):
     batch_max = 4 if str(args.batch_max) == "auto" \
         else int(args.batch_max)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    mesh = build_mesh(args)
+    if mesh is not None:
+        logger.info("device mesh %s: %s", mesh.shape,
+                    [[str(d) for d in row] for row in mesh.grid])
     return EngineManager(entries, device=args.device, compute_dtype=dtype,
                          batch_max=batch_max, weight_resolver=resolver,
                          interleave=int(args.interleave),
                          gather_ms=float(args.gather_ms),
-                         watchdog_s=float(args.watchdog))
+                         watchdog_s=float(args.watchdog), mesh=mesh)
 
 
 class TokenAuthInterceptor:

@@ -24,7 +24,6 @@ import torch
 
 from ..generated import generation_pb2 as pb
 from ..ops import images as I
-from ..utils import rng
 
 logger = logging.getLogger(__name__)
 
@@ -210,8 +209,7 @@ def _quantize(img, a, *_):
 
 
 def _shuffle(img, a, manager, engine_id, seed, ctx=None):
-    gen = torch.Generator().manual_seed(rng.stream_seed(seed, "shuffle"))
-    return I.shuffle(img, I.shuffle_flow(img.shape, gen))
+    return I.shuffle(img, I.shuffle_flow(img.shape, seed))
 
 
 def _task_engine(manager, task: str, engine_id):

@@ -243,9 +243,11 @@ def extract_params(request: pb.Request, adjuster=None) -> ExtractedParams:
     if img.samples:
         p.samples = img.samples
     p.seeds = list(img.seed)
-    if img.HasField("transform"):
-        if img.transform.WhichOneof("type") != "diffusion":
-            _unported(f"transform {img.transform.WhichOneof('type')}")
+    # only the diffusion transform is read, as in the JAX servicer: an
+    # upscaler transform leaves a generate engine's default sampler, and a
+    # task engine is routed by its task
+    if img.HasField("transform") and \
+            img.transform.WhichOneof("type") == "diffusion":
         p.sampler = PROTO_SAMPLERS[img.transform.diffusion]
         p.sampler_set = True
     for sp in img.parameters:

@@ -4,9 +4,9 @@ recompute backward rules of K1 and K2 (ops/attention.py's FlashGrad,
 ops/fused_norm_conv.py's GnSiluConvGrad), against the JAX package on the
 same weights: SD_TEST and CLIP_VISION_TEST, f32 on the CPU.
 
-Torch generators cannot reproduce the JAX package's threefry keys, so the
-crops' offsets are put in at the port's one seam (``cutout_offsets``)
-from the JAX package's own draws, and the end-to-end images use the
+The crops' offsets are put in at the port's one seam (``cutout_offsets``)
+from the JAX package's own draws (the port's own threefry draws equal
+them: tests/test_torch_rng.py), and the end-to-end images use the
 whole-image views ("approx" and "vae"), which draw nothing.
 
 Tolerances (ROADMAP): layers 1e-4, models 1e-3, images 2e-3 absolute; a

@@ -28,7 +28,8 @@ ViT-L/14's, the style adapter's and the 28²-cutout VAE's shapes and
 against 85 context tokens, K2a/K2b through the cutout decode; the
 gradients through K1's and K2's recompute Functions against the plain
 versions' autograd, and the refusal of a direct launch that would cut the
-graph. Bounds as in chip_smoke.py:
+graph; a pool of two replicas and a tp = 2 split on one card against
+one replica (parallel/pool.py). Bounds as in chip_smoke.py:
 2e-2 of max |plain| in bf16 (compounded bf16 rounding, ~5x margin), 1e-3
 for K2a's f32 statistics.
 """
@@ -604,3 +605,47 @@ def test_kernels_refuse_to_cut_a_graph(gen):
         FC.affine_silu_conv3x3(x, a, b, w, torch.zeros(8, device="cuda"))
     with torch.no_grad():
         assert A._flash(q, q, q, 0.25).shape == q.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [1, 2])
+def test_pool_on_one_card_matches_one_replica(gen, tp):
+    """A pool of two replicas on cuda:0 (tp = 1: the 3 samples split 2 + 1,
+    each group on its own host thread), and one tp = 2 group with both
+    shards on cuda:0, against one replica: SD1.5 at 128², 3 steps, every
+    group launching the kernels (K1 twice a UNet attention under tp = 2:
+    each shard launches). uint8 levels as chip_smoke's pool phase holds
+    them: the pool within 2 of one replica on each group's rows, and within
+    12 of one replica's batch of 3 (in bf16 one replica's images of 2 rows
+    differ from its images of 3), tp = 2 within 12 (each shard's partial
+    out-projection is rounded to bf16 before the sum)."""
+    import threading
+
+    from gyre_tpu_torch.models.modelset import random_preset
+    from gyre_tpu_torch.parallel import mesh as pmesh
+    from gyre_tpu_torch.parallel.pool import PooledPipeline
+    from gyre_tpu_torch.pipeline.unified import UnifiedPipeline
+
+    ms = random_preset("sd15", seed=0, dtype=torch.bfloat16, device="cuda")
+    kw = dict(prompt="a boat", height=128, width=128, steps=3,
+              sampler="k_dpmpp_2m", guidance_scale=7.5, seeds=[1, 2, 3],
+              output_dtype="uint8", chunk_steps=2,
+              stop_event=threading.Event())
+    ref = UnifiedPipeline(ms, compute_dtype=torch.bfloat16)(**kw)
+    mesh = pmesh.make_mesh(["cuda:0", "cuda:0"], tp=tp)
+    pool = PooledPipeline([UnifiedPipeline(m, compute_dtype=torch.bfloat16)
+                           for m in pmesh.shard_modelset(ms, mesh)])
+    _build.reset_launches()
+    got = pool(**kw)
+    groups, k1 = (2, 32) if tp == 1 else (1, 64)
+    assert dict(_build.launches) == {
+        "flash_attention": groups * (k1 * 3 + 1),
+        "gn_stats": groups * (44 * 3 + 28),
+        "gn_silu_conv3x3": groups * (44 * 3 + 28)}
+    assert got.shape == ref.shape == (3, 128, 128, 3)
+    assert int((got.int() - ref.int()).abs().max()) <= 12
+    if tp == 1:
+        one = UnifiedPipeline(ms, compute_dtype=torch.bfloat16)
+        per = torch.cat([one(**dict(kw, seeds=kw["seeds"][:2])),
+                         one(**dict(kw, seeds=kw["seeds"][2:]))])
+        assert int((got.int() - per.int()).abs().max()) <= 2

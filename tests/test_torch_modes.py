@@ -7,7 +7,9 @@ in tests/test_torch_modes_hires.py).
 
 The JAX package's random draws are put in at the port's one seam,
 ``utils.rng.draw`` (``jax_draws``), and its txt2img noise through
-``modes.txt2img_initial``: torch generators cannot reproduce threefry.
+``modes.txt2img_initial``, so these tests pin the rest of the path (the
+port's own threefry draws are held to the JAX package's in
+tests/test_torch_rng.py).
 
 Tolerances: the mode functions and ``resize`` 1e-5 absolute (f32, sums in
 another order; ``match_histograms`` exact on ties); ``vae.encode``'s mean

@@ -3,8 +3,9 @@ a second model call (the multistep, fast and adaptive ones are in
 tests/test_torch_pipeline_multistep.py), against the JAX package's
 UnifiedPipeline on the SD_TEST preset: 5 steps, CFG 7.5, f32,
 the JAX random weights carried over by the bridge, and the JAX package's
-initial noise and per-step noise injected for the same seeds (torch
-generators cannot reproduce threefry).
+initial noise and per-step noise injected for the same seeds, so the
+tests pin the rest of the path (the port's own threefry draws:
+tests/test_torch_rng.py).
 
 Tolerance: images agree within 2e-3 absolute in [0, 1], as for DPM++ 2M
 in tests/test_torch_pipeline.py: f32 on both sides, sums in another order
@@ -140,7 +141,7 @@ def test_step_noise_is_per_seed():
                                              "cpu"),
                   trng.batched_stream_normal([9], "sde1", 3, (4, 4, 4),
                                              "cpu"),
-                  trng.batched_normal([9], "anc", (4, 4, 4), "cpu")):
+                  trng.draw([9], ("anc",), (4, 4, 4), "cpu")):
         assert not torch.equal(alone, other)
 
 

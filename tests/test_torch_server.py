@@ -304,6 +304,18 @@ def test_grpc_gateway(served):
     assert answers[0]["artifacts"][0]["seed"] == 3
 
 
+def _b64_frames(body: bytes) -> bytes:
+    """A grpc-web-text body decoded: each frame is base64-encoded apart, so
+    padding may end a frame inside the stream; decode segment by
+    segment (each segment a multiple of 4 characters)."""
+    out, start = b"", 0
+    for end in range(4, len(body) + 1, 4):
+        if body[end - 1:end] == b"=" or end == len(body):
+            out += base64.b64decode(body[start:end])
+            start = end
+    return out
+
+
 def test_grpc_web_text_mode(served):
     req = pb.Request(engine_id="test-engine")
     req.prompt.add().text = "text mode"
@@ -315,7 +327,7 @@ def test_grpc_web_text_mode(served):
         served["url"] + "/gooseai.GenerationService/Generate", payload,
         {**BEARER, "Content-Type": "application/grpc-web-text+proto"})
     assert status == 200
-    frames = list(grpc_web.unwrap_message_stream(base64.b64decode(body)))
+    frames = list(grpc_web.unwrap_message_stream(_b64_frames(body)))
     data = [d for f, d in frames if not f & grpc_web.TRAILER_FLAG]
     assert pb.Answer.FromString(data[0]).artifacts[0].seed == 4
     assert b"grpc-status: 0" in frames[-1][1]

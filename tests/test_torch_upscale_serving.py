@@ -5,7 +5,9 @@ an ESRGAN, a SwinIR and a HAT engine (the PNGs within one level: no noise
 enters an upscale), a request to the background-removal engine (its RGBA
 PNG within one level) and client.py's ``--hint_from_image nobg:depth:``
 chain (background removal, the depth hint, the mask reapplied as alpha;
-2e-3); ListEngines of the upscale group (``client.py --list-upscalers``),
+2e-3); a request with the Upscaler transform to an ESRGAN and to a
+generate engine, answered as the JAX servicer answers it; ListEngines of
+the upscale group (``client.py --list-upscalers``),
 the sd-x4 diffusion upscaler among them, ready and answering;
 then the SDXL base -> refiner -> ESRGAN ChainGenerate of
 tests/test_sdxl_chain.py through the port alone (the JAX package's noise
@@ -30,6 +32,7 @@ from gyre_tpu_torch.manager.manager import EngineManager as TManager
 from gyre_tpu_torch.models import esrgan as te
 from gyre_tpu_torch.models import hat as th
 from gyre_tpu_torch.models import inspyrenet as ti
+from gyre_tpu_torch.models import modelset as tms
 from gyre_tpu_torch.models import swinir as ts
 from gyre_tpu_torch.ops import images as timages
 from gyre_tpu_torch.services import generate as tgen
@@ -103,6 +106,53 @@ def test_upscale_route_matches_jax(servicers, engine, tmp_path,
     got = _image(port.Generate(treq, TContext()))
     want = _image(ref.Generate(jreq, JContext()))
     assert got.shape == want.shape == (1, 128, 96, 3)
+    assert np.abs(got - want).max() <= LEVEL
+    assert got.std() > 1e-3
+
+
+@pytest.mark.parametrize("engine", ["esrgan-x4", "tiny"])
+def test_upscaler_transform_is_served_as_by_jax(servicers, engine):
+    """A request that sets ``image.transform.upscaler`` (the protocol's
+    other TransformType): the JAX servicer reads only the diffusion
+    transform, so an ESRGAN engine is routed by its task (the 4x PNG) and a
+    generate engine keeps its default sampler (the image, on the JAX
+    engine's weights bridged into the port's, with the same seed); the
+    port answers both as the JAX servicer does, not UNIMPLEMENTED."""
+    import jax
+
+    port, ref, tm, jm = servicers
+    if engine == "tiny":
+        jms_ = jm.modelset("tiny")
+        tm._modelsets["tiny"] = tms.from_jax_params(
+            jax.tree.map(np.asarray, jms_.unet_params),
+            jax.tree.map(np.asarray, jms_.vae_params),
+            [jax.tree.map(np.asarray, t) for t in jms_.text_params],
+            jms_.config, device="cpu")
+        tm._pipelines.pop("tiny", None)
+        tm._views.pop("tiny", None)
+
+    def request(pb):
+        req = pb.Request(engine_id=engine, request_id="up")
+        req.image.transform.upscaler = pb.UPSCALER_ESRGAN
+        if engine == "tiny":
+            req.prompt.add().text = "a boat"
+            req.image.height = req.image.width = 64
+            req.image.steps = 2
+            req.image.seed.append(3)
+        else:
+            p = req.prompt.add()
+            p.artifact.type = pb.ARTIFACT_IMAGE
+            p.artifact.binary = timages.encode_png(IMG)
+            p.parameters.init = True
+        return req
+
+    treq, jreq = request(tpb), request(jpb)
+    assert tgen.extract_params(treq).sampler == \
+        jgen.extract_params(jreq).sampler
+    got = _image(port.Generate(treq, TContext()))
+    want = _image(ref.Generate(jreq, JContext()))
+    shape = (1, 64, 64, 3) if engine == "tiny" else (1, 128, 96, 3)
+    assert got.shape == want.shape == shape
     assert np.abs(got - want).max() <= LEVEL
     assert got.std() > 1e-3
 
