@@ -86,3 +86,22 @@ def test_affine_then_conv_equals_chain():
     two_pass = TF.affine_silu_conv3x3(x, a, b, wt, cb)
     chain = TF.gn_silu_conv3x3_plain(x, gs, gb, wt, cb, groups=8, eps=1e-6)
     assert _err(two_pass.numpy(), chain.numpy()) <= TOL
+
+
+def test_kernel_sweep_variants_apply_to_the_kernel():
+    """kernel_sweep.py builds K2b's launch overrides and pipeline ablations
+    by textual substitution of csrc/gn_silu_conv3x3.cu: each must still
+    find its line in the committed kernel, so that the sweep cannot rot
+    unnoticed beside it."""
+    import kernel_sweep
+    from gyre_tpu_torch import _build
+
+    src = (_build.CSRC / "gn_silu_conv3x3.cu").read_text()
+    variants = kernel_sweep.conv_variants(src)
+    assert set(variants) == {
+        "kernel", "no_weight_loads", "no_halo_loads", "no_activation",
+        "no_halo_or_activation", "neither", "neither_nor_products"}
+    assert 'getenv("GYRE_SPLIT")' in variants["kernel"]
+    others = [v for k, v in variants.items() if k != "kernel"]
+    assert all(v != variants["kernel"] for v in others)
+    assert len(set(others)) == len(others)

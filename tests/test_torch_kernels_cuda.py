@@ -138,7 +138,15 @@ def test_flash_attention_rejects(gen, bad):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,w,c,co,groups", [
     (2, 9, 7, 96, 72, 32), (1, 16, 16, 160, 64, 32), (3, 5, 11, 16, 8, 8),
-    (1, 12, 12, 64, 200, 32)])
+    (1, 12, 12, 64, 200, 32),
+    # K2b's output tiles are 128 channels, or 192 where Co is 64 past a
+    # multiple of 128 (320 = 192 + 128, 448 = 192 + 192 + 64); a tile runs
+    # products as wide as its 64-column atoms before Co: ragged Co past a
+    # whole tile (136 = 128 + 8) and inside a narrow one (72, above)
+    (2, 16, 16, 64, 320, 32), (1, 16, 16, 64, 448, 32),
+    (1, 24, 8, 128, 136, 32),
+    # 8 x 8 tiles of two images with an odd batch, and 16 x 8 tiles of one
+    (3, 8, 8, 128, 128, 32), (1, 40, 24, 64, 128, 32)])
 def test_gn_silu_conv3x3(gen, b, h, w, c, co, groups):
     x = (torch.randn((b, h, w, c), generator=gen, device="cuda") +
          3.0).to(torch.bfloat16)
@@ -154,6 +162,7 @@ def test_gn_silu_conv3x3(gen, b, h, w, c, co, groups):
     out = FC.affine_silu_conv3x3(x, a_ref, b_ref, wt, cb)
     ref = FC.affine_silu_conv3x3_plain(x, a_ref, b_ref, wt, cb)
     assert _rel(out, ref) <= BF16_BOUND
+    assert torch.equal(out, FC.affine_silu_conv3x3(x, a_ref, b_ref, wt, cb))
     chain = FC.gn_silu_conv3x3(x, gs, gb, wt, cb, groups=groups, eps=1e-6)
     chain_ref = FC.gn_silu_conv3x3_plain(x, gs, gb, wt, cb, groups=groups,
                                          eps=1e-6)
@@ -192,11 +201,21 @@ def test_gn_stats(gen, b, h, w, c, eps, offset):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,hw,c,co", [
-    (2, 8, 2560, 1280), (2, 16, 1920, 1280), (2, 8, 1280, 1280)])
+    (2, 8, 2560, 1280), (2, 16, 1920, 1280), (2, 8, 1280, 1280),
+    # the benchmark cells' loaded shapes: SD1.5's UNet at 16 rows (8 images,
+    # both CFG halves) at each level, its VAE decode of 8 images (512² at
+    # 2, to bound the test's memory and time), SDXL's UNet at 8 rows
+    (16, 64, 320, 320), (16, 32, 640, 640), (16, 16, 1280, 1280),
+    (16, 16, 2560, 1280), (16, 8, 1280, 1280), (16, 8, 2560, 1280),
+    (8, 64, 512, 512), (8, 128, 512, 512), (8, 256, 512, 256),
+    (8, 256, 256, 256), (2, 512, 256, 128), (2, 512, 128, 128),
+    (8, 128, 320, 320), (8, 64, 640, 640), (8, 32, 1280, 1280)])
 def test_conv_split_k(gen, b, hw, c, co):
-    """UNet 8x8 and 16x16 shapes (M = 128 / 512 pixels), where K is split
-    over a thread-block cluster; the cluster's reduction runs in a fixed
-    order, so two calls give the same bits."""
+    """UNet 8x8 and 16x16 shapes at batch 2 (M = 128 / 512 pixels), where
+    K is split over a thread-block cluster, and the benchmark cells' loaded
+    shapes, where persistent blocks walk many tiles (the 8x8 level at 16
+    rows splits too); the cluster's reduction runs in a fixed order, so
+    two calls give the same bits."""
     x = _randn(gen, b, hw, hw, c)
     a = 1 + 0.1 * _randn(gen, b, c, dtype=torch.float32)
     bb = 0.1 * _randn(gen, b, c, dtype=torch.float32)
