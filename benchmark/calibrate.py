@@ -1,7 +1,8 @@
-"""The control of a cell's check, on the card: the plain reference put in
-the program's place, computed in the next precision below the one the
-configuration serves in (fp8 e4m3 operands of every matmul and conv, for
-bf16), compared with the float32 reference by the check's own numbers.
+"""The control of a cell's check, on the card: the plain reference of the
+configuration's family (``reference/<family>.py``) put in the program's
+place, computed in the next precision below the one the configuration
+serves in (fp8 e4m3 operands of every matmul and conv, for bf16),
+compared with the float32 reference by the check's own numbers.
 
     python3 benchmark/calibrate.py --workload <name> --seeds 11 12 13
 
@@ -32,8 +33,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     import torch
 
-    from benchmark import harness, traffic, weights
-    from benchmark.reference import sd
+    from benchmark import family, harness, traffic, weights
 
     manifest = harness.load_json(ROOT / "BENCHMARK.json")
     cell = harness.cell_files(manifest, args.workload)
@@ -41,16 +41,18 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg, spec = cell["config"], cell["workload"]["check"]
+    reference = family.reference(cfg)
     dtype = getattr(torch, cfg["serving"]["dtype"])
     passed = []
     for seed in args.seeds:
         t0 = time.perf_counter()
-        reqs = [r for client in traffic.client_requests(cell["mix"], seed)
-                for r in client[:1]][:int(spec["sample"])]
+        # the clients' first requests, then their second ...
+        reqs = [r for ith in zip(*traffic.client_requests(cell["mix"], seed))
+                for r in ith][:int(spec["sample"])]
         state = weights.make(cfg, seed, "cuda", dtype)
         block = int(spec.get("block", 1))
-        ref = sd.Reference(cfg, state)
-        ctl = sd.Reference(cfg, state, quant=sd.fp8_quant)
+        ref = reference.Reference(cfg, state)
+        ctl = reference.Reference(cfg, state, quant=reference.fp8_quant)
         means, maxes = [], []
         for b in range(0, len(reqs), block):
             part = reqs[b:b + block]

@@ -2,23 +2,25 @@
 floating-point operations of every matmul and conv (2 per multiply-add),
 and the launches of the port's two main kernels with their shapes.
 
-``unet_call``, ``vae_decode`` and ``text_tower`` walk the published
-config dicts the way the architecture is defined (diffusers'
-UNet2DConditionModel and AutoencoderKL, transformers' CLIPTextModel). Each
-returns a ``Work``: FLOPs, K1 launches as (B, H, Tq, Tk, d) and K2b
-launches as (M, C, Co), M being the rows of the implicit GEMM (batch x
-height x width). The least time of a launch is the larger of its FLOPs
-over the card's peak and its bytes over the card's bandwidth
-(``peaks.py``); every input byte is counted read once and every output
-byte written once, at the true head size (no padding).
+A request's and a chunk's work are the configuration's family's
+(``request`` and ``chunk_work`` of ``families/<family>.py``); the parts
+any family may share are here: ``vae_decode`` and ``text_tower`` walk the
+published config dicts the way the architecture is defined (diffusers'
+AutoencoderKL, transformers' CLIPTextModel), as the SD family's
+``unet_call`` walks its UNet2DConditionModel. Each returns a ``Work``:
+FLOPs, K1 launches as (B, H, Tq, Tk, d) and K2b launches as (M, C, Co), M
+being the rows of the implicit GEMM (batch x height x width). The least
+time of a launch is the larger of its FLOPs over the card's peak and its
+bytes over the card's bandwidth (``peaks.py``); every input byte is
+counted read once and every output byte written once, at the true head
+size (no padding).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-from . import peaks
-from .weights import text_towers
+from . import family, peaks
 
 
 @dataclass
@@ -58,70 +60,6 @@ def _resnet(w: Work, b, hw, c, co, temb):
         w.flops += _conv(m, c, co, k=1)
 
 
-def _transformer(w: Work, b, hw, c, ctx_len, ctx_dim, heads, layers):
-    """proj_in, ``layers`` blocks (self-attention, cross-attention, GEGLU
-    feed-forward), proj_out. Each attention is one K1 launch."""
-    d = c // heads
-    t = b * hw
-    w.flops += 2 * _lin(t, c, c)                       # proj_in, proj_out
-    for _ in range(layers):
-        w.flops += 4 * _lin(t, c, c) + _attn(b, heads, hw, hw, d)  # self
-        w.flops += 2 * _lin(t, c, c) + 2 * _lin(b * ctx_len, ctx_dim, c)
-        w.flops += _attn(b, heads, hw, ctx_len, d)                 # cross
-        w.flops += _lin(t, c, 8 * c) + _lin(t, 4 * c, c)           # GEGLU
-        w.k1 += [(b, heads, hw, hw, d), (b, heads, hw, ctx_len, d)]
-
-
-def unet_call(u: dict, rows: int, h: int, w_: int, ctx_len: int = 77) -> Work:
-    """One UNet call on ``rows`` rows of h x w latents."""
-    boc = list(u["block_out_channels"])
-    n = len(boc)
-    heads = u.get("num_attention_heads") or u.get("attention_head_dim", 8)
-    heads = [heads] * n if isinstance(heads, int) else list(heads)
-    depth = u.get("transformer_layers_per_block", 1)
-    depth = [depth] * n if isinstance(depth, int) else list(depth)
-    layers = u.get("layers_per_block", 2)
-    temb = int(u.get("time_embedding_dim") or boc[0] * 4)
-    ctx = int(u["cross_attention_dim"])
-    w = Work()
-    w.flops += _lin(rows, boc[0], temb) + _lin(rows, temb, temb)
-    if u.get("addition_embed_type") == "text_time":
-        w.flops += _lin(rows, u["projection_class_embeddings_input_dim"],
-                        temb) + _lin(rows, temb, temb)
-    hw = h * w_
-    w.flops += _conv(rows * hw, u["in_channels"], boc[0])
-    skips = [boc[0]]
-    c_prev = boc[0]
-    for i, c in enumerate(boc):
-        for j in range(layers):
-            _resnet(w, rows, hw, c_prev if j == 0 else c, c, temb)
-            if "CrossAttn" in u["down_block_types"][i]:
-                _transformer(w, rows, hw, c, ctx_len, ctx, heads[i],
-                             depth[i])
-            skips.append(c)
-        if i < n - 1:
-            hw //= 4
-            w.flops += _conv(rows * hw, c, c)
-            skips.append(c)
-        c_prev = c
-    _resnet(w, rows, hw, boc[-1], boc[-1], temb)
-    _transformer(w, rows, hw, boc[-1], ctx_len, ctx, heads[-1], depth[-1])
-    _resnet(w, rows, hw, boc[-1], boc[-1], temb)
-    c_prev = boc[-1]
-    for i, c in enumerate(boc[::-1]):
-        for j in range(layers + 1):
-            _resnet(w, rows, hw, c_prev + skips.pop(), c, temb)
-            c_prev = c
-            if "CrossAttn" in u["up_block_types"][i]:
-                _transformer(w, rows, hw, c, ctx_len, ctx, heads[::-1][i],
-                             depth[::-1][i])
-        if i < n - 1:
-            hw *= 4
-            w.flops += _conv(rows * hw, c, c)
-    w.flops += _conv(rows * hw, boc[0], u["out_channels"])
-    return w
-
-
 def vae_decode(v: dict, rows: int, h: int, w_: int) -> Work:
     """The VAE decoder on ``rows`` rows of h x w latents; its mid-block
     attention is one single-head K1 launch."""
@@ -130,7 +68,9 @@ def vae_decode(v: dict, rows: int, h: int, w_: int) -> Work:
     layers = v.get("layers_per_block", 2)
     w = Work()
     hw = h * w_
-    w.flops += _conv(rows * hw, lc, lc, k=1) + _conv(rows * hw, lc, chs[-1])
+    if v.get("use_post_quant_conv", True):
+        w.flops += _conv(rows * hw, lc, lc, k=1)
+    w.flops += _conv(rows * hw, lc, chs[-1])
     c = chs[-1]
     _resnet(w, rows, hw, c, c, None)
     w.flops += 4 * _lin(rows * hw, c, c) + _attn(rows, 1, hw, hw, c)
@@ -165,16 +105,9 @@ def text_tower(t: dict, rows: int, length: int = 77) -> Work:
 
 def request(config: dict, images: int, height: int, width: int,
             steps: int) -> Work:
-    """The model work of a batch of ``images`` txt2img requests under
-    parallel CFG: each tower on the prompt and the negative prompt, 2 x
-    images UNet rows at every step, the decode of each image."""
-    h, w_ = height // 8, width // 8
-    work = Work()
-    for name in text_towers(config):
-        work.add(text_tower(config[name], 2 * images))
-    work.add(unet_call(config["unet"], 2 * images, h, w_), steps)
-    work.add(vae_decode(config["vae"], images, h, w_))
-    return work
+    """The model work of a batch of ``images`` txt2img requests of one
+    size and steps: the ``request`` of the configuration's family."""
+    return family.code(config).request(config, images, height, width, steps)
 
 
 # ------------------------------------------------------------ least times
@@ -203,19 +136,9 @@ def least_seconds(flops: float, nbytes: float) -> tuple[float, str]:
 
 def chunk_work(config: dict, chunk) -> tuple[Work, float]:
     """(the kernels' work at the rows and size the chunk ran, padding
-    included; the model FLOPs of its real rows) of one ``program.Chunk``."""
-    h, w_ = chunk.height // 8, chunk.width // 8
-    rows, real = chunk.rows, chunk.rows - chunk.pad
-    if chunk.kind == "decode":
-        return (vae_decode(config["vae"], rows, h, w_),
-                vae_decode(config["vae"], real, h, w_).flops)
-    calls = chunk.end - chunk.first
-    ran = Work().add(unet_call(config["unet"], 2 * rows, h, w_), calls)
-    useful = unet_call(config["unet"], 2 * real, h, w_).flops * calls
-    if chunk.first == 0:
-        useful += sum(text_tower(config[t], 2 * real).flops
-                      for t in text_towers(config))
-    return ran, useful
+    included; the model FLOPs of its real rows) of one ``program.Chunk``:
+    the ``chunk_work`` of the configuration's family."""
+    return family.code(config).chunk_work(config, chunk)
 
 
 def traced(run) -> tuple[Work, float]:

@@ -3,12 +3,13 @@ clients, the trace, the check against the plain reference, and the result
 line.
 
 Everything a cell is made of is found by name, as files: the cell under
-``workloads/``, its configuration under ``configs/``, its traffic mix under
-``traffic/``, and each metric's reader under ``metrics/`` (``read(run)``
-returns a number, or None when it finds nothing to read). Which metrics a
-run reports comes from BENCHMARK.json: the end-to-end ones without
-``--trace``, the per-layer ones with it, each in the cells its
-``workloads`` key names (every cell where it has none).
+``workloads/``, its configuration under ``configs/`` and its model family's
+code under ``families/`` and ``reference/`` (``family.py``), its traffic
+mix under ``traffic/``, and each metric's reader under ``metrics/``
+(``read(run)`` returns a number, or None when it finds nothing to
+read). Which metrics a run reports comes from BENCHMARK.json: the
+end-to-end ones without ``--trace``, the per-layer ones with it, each in
+the cells its ``workloads`` key names (every cell where it has none).
 """
 
 from __future__ import annotations
@@ -40,7 +41,9 @@ def load_json(path: Path) -> dict:
 
 
 def cell_files(manifest: dict, name: str, data: Path = HERE) -> dict:
-    """The cell's manifest entry, workload, configuration and traffic."""
+    """The cell's manifest entry, workload, configuration and traffic.
+    The configuration must name its family; it records the directory it
+    was read from, where its family's files are found (``family.py``)."""
     entry = next((w for w in manifest["workloads"] if w["name"] == name),
                  None)
     if entry is None:
@@ -50,6 +53,11 @@ def cell_files(manifest: dict, name: str, data: Path = HERE) -> dict:
                                                      entry["traffic"]):
         raise RunError(f"workloads/{name}.json disagrees with BENCHMARK.json")
     config = load_json(data / "configs" / f"{entry['config']}.json")
+    if not config.get("family"):
+        raise RunError(f"configs/{entry['config']}.json names no family: "
+                       "its \"family\" key finds families/<family>.py and "
+                       "reference/<family>.py")
+    config["benchmark_dir"] = str(data)
     mix = load_json(data / "traffic" / f"{entry['traffic']}.json")
     if mix.get("loop") != "closed":
         raise RunError(f"traffic/{entry['traffic']}.json: loop "
@@ -326,8 +334,7 @@ def check(run: Run, device: str = "cuda") -> dict:
     Returns {name: {"value", "limit"}} and sets run.check["correct"]."""
     import torch
 
-    from . import png, weights
-    from .reference import sd
+    from . import family, png, weights
 
     spec = run.workload["check"]
     done = [r for r in run.records if r["ok"]]
@@ -341,7 +348,7 @@ def check(run: Run, device: str = "cuda") -> dict:
     state = weights.make(run.config, run.seed, device,
                          getattr(torch, run.config["serving"]["dtype"]))
     same = _checksum(state) == run.check["weights_sum"]
-    ref = sd.Reference(run.config, state)
+    ref = family.reference(run.config).Reference(run.config, state)
     means, maxes = [], []
     block = int(spec.get("block", 1))
     for b in range(0, len(sample), block):

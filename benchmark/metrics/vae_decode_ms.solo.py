@@ -1,0 +1,8 @@
+"""``vae_decode_ms`` of the one-client cells, which report
+``images_per_s.solo``: the same reader, ``vae_decode_ms.py``."""
+
+from pathlib import Path
+
+from benchmark import harness
+
+read = harness.reader("vae_decode_ms", Path(__file__).resolve().parent)

@@ -3,7 +3,9 @@ port's ModelSet loaded through its own key maps from the benchmark's
 weights, one EngineManager with the cell's engine, the gRPC server in front
 of it, and the pipeline's chunks recorded at the dispatcher's boundary.
 
-This is the only module of the benchmark that imports ``gyre_tpu_torch``.
+This module and each family's ``serve`` (``families/<family>.py``, which
+builds the served model set) are the benchmark's only imports of
+``gyre_tpu_torch``.
 """
 
 from __future__ import annotations
@@ -13,78 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import weights as W
-
-
-def served_config(config: dict):
-    """The port's ModelSetConfig for ``config``: its preset (the server's
-    engines name presets), checked against the published widths."""
-    from gyre_tpu_torch.models import configs
-
-    cfg = configs.PRESETS[config["preset"]]
-    u, v = config["unet"], config["vae"]
-    want = configs.unet_config_from_diffusers(u, cfg.unet)
-    for f in ("block_out_channels", "num_heads", "cross_attention_dim",
-              "in_channels", "out_channels", "layers_per_block",
-              "attn_levels", "linear_projection", "addition_embed_dim",
-              "addition_time_dim", "addition_time_ids", "time_embed_dim",
-              "norm_groups"):
-        if getattr(want, f) != getattr(cfg.unet, f):
-            raise ValueError(f"preset {config['preset']}: unet {f} "
-                             f"{getattr(cfg.unet, f)} != published "
-                             f"{getattr(want, f)}")
-    levels = [d for d, a in zip(want.transformer_layers, want.attn_levels)
-              if a]
-    if levels != [d for d, a in zip(cfg.unet.transformer_layers,
-                                    cfg.unet.attn_levels) if a]:
-        raise ValueError(f"preset {config['preset']}: transformer depths "
-                         "differ from the published config")
-    if list(v["block_out_channels"]) != list(cfg.vae.block_out_channels) \
-            or float(v.get("scaling_factor", 0.18215)) != \
-            cfg.vae.scaling_factor:
-        raise ValueError(f"preset {config['preset']}: VAE differs")
-    towers = W.text_towers(config)
-    if len(towers) != len(cfg.text_encoders):
-        raise ValueError(f"preset {config['preset']}: {len(towers)} towers")
-    for name, te in zip(towers, cfg.text_encoders):
-        t = config[name]
-        if (t["hidden_size"], t["num_hidden_layers"],
-                t["num_attention_heads"], t["intermediate_size"],
-                t["hidden_act"]) != (te.hidden_size, te.num_layers,
-                                     te.num_heads, te.intermediate_size,
-                                     te.activation):
-            raise ValueError(f"preset {config['preset']}: {name} differs")
-    if int(config["serving"]["clip_layer"]) != cfg.clip_layer:
-        raise ValueError(f"preset {config['preset']}: clip_layer differs")
-    return cfg
-
-
-def modelset(config: dict, state: dict, device, dtype, engine_id: str):
-    """The port's ModelSet from the benchmark's weights, through
-    models/load.py's key maps (each leaf copied to the device in
-    ``dtype``), with no file written."""
-    from gyre_tpu_torch.models import load as L
-    from gyre_tpu_torch.models.modelset import ModelSet, model_specs
-    from gyre_tpu_torch.pipeline import schedule as sched
-    from gyre_tpu_torch.pipeline.tokenizer import load_tokenizer
-
-    cfg = served_config(config)
-    unet_s, vae_s, text_s = model_specs(cfg)
-    unet = L.load_tree(unet_s, W.part(state, "unet"), L.unet_keys, "unet",
-                       dtype, device)
-    vae = L.load_tree(vae_s, W.part(state, "vae"), L.vae_keys, "vae", dtype,
-                      device)
-    text = [L.load_tree(s, W.part(state, name), L.clip_keys, name, dtype,
-                        device)
-            for s, name in zip(text_s, W.text_towers(config))]
-    s = config["scheduler"]
-    schedule = sched.scaled_linear_schedule(
-        num_timesteps=s["num_train_timesteps"], beta_start=s["beta_start"],
-        beta_end=s["beta_end"], prediction_type=s["prediction_type"])
-    return ModelSet(config=cfg, unet_params=unet, vae_params=vae,
-                    text_params=text, tokenizer=load_tokenizer(None),
-                    schedule=schedule, device=torch.device(device),
-                    id=engine_id)
+from . import family
 
 
 class Chunk(NamedTuple):
@@ -167,7 +98,7 @@ class System:
             gather_ms=float(srv.get("gather_ms", 10.0)))
         # the manager has no public seam for a ready ModelSet: it is placed
         # where modelset() caches what it builds
-        self.manager._modelsets[engine_id] = modelset(
+        self.manager._modelsets[engine_id] = family.code(config).serve(
             config, state, device, dtype, engine_id)
         self.dispatcher = self.manager.dispatcher
         self.log = ChunkLog()

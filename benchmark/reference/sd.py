@@ -345,7 +345,9 @@ def vae_decode(net: Net, v: dict, z):
     g, eps = v.get("norm_num_groups", 32), 1e-6
     n = len(v["block_out_channels"])
     layers = v.get("layers_per_block", 2)
-    h = net.conv("decoder.conv_in", net.conv("post_quant_conv", z))
+    if v.get("use_post_quant_conv", True):
+        z = net.conv("post_quant_conv", z)
+    h = net.conv("decoder.conv_in", z)
 
     def attn(key, x):
         b, c, hh, ww = x.shape

@@ -18,7 +18,7 @@ def test_config() -> dict:
     # entry of a list)
     unet["transformer_layers_per_block"] = 1
     return {"name": "test", "source": "the port's test preset",
-            "preset": "test", "reduced": [],
+            "family": "sd", "preset": "test", "reduced": [],
             "serving": {"clip_layer": cfg.clip_layer, "dtype": "float32"},
             "unet": unet,
             "vae": C.vae_config_to_diffusers(cfg.vae),

@@ -10,11 +10,16 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from benchmark import flops, peaks, weights
+from benchmark import family, flops, peaks, weights
 from benchmark.reference import sd
 from benchmark.tests import cells
 
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
+
+
+def _unet_call(cfg, *args):
+    """The SD family's count of one UNet call (families/sd.py)."""
+    return family.code(cfg).unet_call(cfg["unet"], *args)
 
 
 def test_k1_hand_count():
@@ -42,7 +47,7 @@ def test_k2b_hand_count():
 def test_launches_per_call(name, k1, k2b):
     cfg = json.loads((CONFIGS / f"{name}.json").read_text())
     h = cfg["unet"]["sample_size"]
-    call = flops.unet_call(cfg["unet"], 2, h, h)
+    call = _unet_call(cfg, 2, h, h)
     assert (len(call.k1), len(call.k2b)) == (k1, k2b)
     dec = flops.vae_decode(cfg["vae"], 1, h, h)
     assert (len(dec.k1), len(dec.k2b)) == (1, 28)
@@ -58,7 +63,7 @@ def test_unet_flops_match_torch_counter():
     ctx = torch.randn(2, 77, u["cross_attention_dim"])
     with FlopCounterMode(display=False) as counter:
         sd.unet_forward(net, u, x, torch.tensor([10.0, 10.0]), ctx)
-    assert counter.get_total_flops() == flops.unet_call(u, 2, 8, 8).flops
+    assert counter.get_total_flops() == _unet_call(cfg, 2, 8, 8).flops
 
 
 def test_decode_and_tower_flops_match_torch_counter():
@@ -84,7 +89,7 @@ def test_request_is_its_parts():
     cfg = json.loads((CONFIGS / "sd15.json").read_text())
     work = flops.request(cfg, 1, 512, 512, 20)
     parts = (flops.text_tower(cfg["text_encoder"], 2).flops +
-             20 * flops.unet_call(cfg["unet"], 2, 64, 64).flops +
+             20 * _unet_call(cfg, 2, 64, 64).flops +
              flops.vae_decode(cfg["vae"], 1, 64, 64).flops)
     assert work.flops == parts
     assert round(work.flops / 1e12, 2) == 34.67

@@ -25,9 +25,12 @@ def _imported_tops(path: Path) -> set:
 
 
 def test_sources_import_no_jax():
-    for path in BENCH.rglob("*.py"):
-        if "tests" in path.parts:
-            continue
+    """Every source the harness may load, the families' and references'
+    files found by name with them."""
+    sources = [p for p in BENCH.rglob("*.py") if "tests" not in p.parts]
+    assert {p.parent.name for p in sources} >= {"families", "reference",
+                                                "metrics"}
+    for path in sources:
         assert not _imported_tops(path) & set(harness.JAX_MODULES), path
 
 
@@ -45,10 +48,18 @@ def test_a_run_loads_no_jax():
     fresh process."""
     code = (
         "import sys; sys.path.insert(0, %r)\n"
-        "from benchmark import harness, program, trace, flops, traffic\n"
+        "from benchmark import family, harness, program, trace, flops\n"
+        "from benchmark import traffic\n"
         "from benchmark.reference import sd\n"
         "import gyre_tpu_torch.server, gyre_tpu_torch.manager.manager\n"
         "import gyre_tpu_torch.services.generate, gyre_tpu_torch.models.load\n"
+        "import gyre_tpu_torch.models.modelset\n"
+        "import gyre_tpu_torch.pipeline.schedule\n"
+        "import gyre_tpu_torch.pipeline.tokenizer\n"
+        "man = harness.load_json(harness.HERE.parent / 'BENCHMARK.json')\n"
+        "for w in man['workloads']:\n"
+        "    cfg = harness.cell_files(man, w['name'])['config']\n"
+        "    family.code(cfg), family.reference(cfg)\n"
         "for m in ('images_per_s', 'mfu', 'k1_roofline', 'k2b_roofline'):\n"
         "    harness.reader(m)\n"
         "tops = {m.split('.')[0] for m in sys.modules}\n"

@@ -88,6 +88,8 @@ def test_files_found_by_name(manifest):
         assert c["file"] == f"benchmark/configs/{c['name']}.json"
         cfg = json.loads((ROOT / c["file"]).read_text())
         assert cfg["source"] == c["source"] and cfg["reduced"] == c["reduced"]
+        for kind in ("families", "reference"):
+            assert (BENCH / kind / f"{cfg['family']}.py").is_file()
     for w in manifest["workloads"]:
         cell = harness.cell_files(manifest, w["name"])
         assert cell["workload"]["chips"] == w["chips"] == 1

@@ -33,3 +33,20 @@ def test_latencies_take_every_request():
     run = _run([1.0, 2.0, 3.0, 4.0, 30.0])
     assert harness.reader("latency_p50_s")(run) == 3.0
     assert harness.reader("latency_p95_s")(run) > 4.0
+
+
+def test_solo_metrics_are_their_quantities_readers():
+    """A ``<metric>.solo`` (the one-client cells' split, under bounds of
+    their own) reads with ``<metric>.py`` itself."""
+    import json
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[2]
+    manifest = json.loads((root / "BENCHMARK.json").read_text())
+    twins = [m["name"] for m in manifest["end_to_end"] +
+             manifest["per_layer"] if m["name"].endswith(".solo")]
+    assert twins
+    for name in twins:
+        base = name[:-len(".solo")]
+        assert harness.reader(name).__code__.co_filename == str(
+            root / "benchmark" / "metrics" / f"{base}.py")

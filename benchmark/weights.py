@@ -1,15 +1,19 @@
-"""Random weights of a Stable Diffusion configuration, in the published
-diffusers / transformers layouts, made on the device from the run's seed.
+"""Random weights of a configuration, in the published diffusers /
+transformers layouts, made on the device from the run's seed.
 
-``layout(config)`` lists every tensor of the UNet, the VAE and each CLIP text
-tower under its published key (``unet.``, ``vae.``, ``text_encoder.`` ...
+``layout(config)`` lists every tensor of the configuration's family
+(``families/<family>.py``: for SD the UNet, the VAE and each CLIP text
+tower) under its published key (``unet.``, ``vae.``, ``text_encoder.`` ...
 prefixes), with its shape and how it is drawn: linear and conv weights
 uniform in +-1/sqrt(fan_in), norm scales 1, biases 0, token embeddings
-N(0, 0.02^2) and position embeddings N(0, 0.01^2). ``make(config, seed)``
-draws them in the served dtype with one ``torch.Generator`` on the device:
-one uniform call for all weights and one normal call for the embeddings,
-each tensor a view of those two buffers. Both the program (through its own
-loader's key maps) and the plain reference read these same tensors.
+N(0, 0.02^2) and position embeddings N(0, 0.01^2). The building blocks
+any family may share are here: linear, conv and norm entries, the SD VAE
+(``vae_layout``) and a CLIP text tower (``clip_layout``).
+``make(config, seed)`` draws them in the served dtype with one
+``torch.Generator`` on the device: one uniform call for all weights and
+one normal call for the embeddings, each tensor a view of those two
+buffers. Both the program (through its own loader's key maps) and the
+plain reference read these same tensors.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from . import family
 
 # -------------------------------------------------------------- the layouts
 
@@ -48,91 +54,6 @@ def _resnet(out, key, c_in, c_out, temb: int | None):
         _conv(out, f"{key}.conv_shortcut", c_in, c_out, k=1)
 
 
-def _transformer(out, key, c, ctx, layers: int, linear_proj: bool):
-    _norm(out, f"{key}.norm", c)
-    proj = _lin if linear_proj else (
-        lambda o, k, a, b: _conv(o, k, a, b, k=1))
-    proj(out, f"{key}.proj_in", c, c)
-    for i in range(layers):
-        b = f"{key}.transformer_blocks.{i}"
-        for n, kv in (("attn1", c), ("attn2", ctx)):
-            _lin(out, f"{b}.{n}.to_q", c, c, bias=False)
-            _lin(out, f"{b}.{n}.to_k", kv, c, bias=False)
-            _lin(out, f"{b}.{n}.to_v", kv, c, bias=False)
-            _lin(out, f"{b}.{n}.to_out.0", c, c)
-        for n in ("norm1", "norm2", "norm3"):
-            _norm(out, f"{b}.{n}", c)
-        _lin(out, f"{b}.ff.net.0.proj", c, 8 * c)
-        _lin(out, f"{b}.ff.net.2", 4 * c, c)
-    proj(out, f"{key}.proj_out", c, c)
-
-
-def unet_plan(u: dict) -> dict:
-    """The UNet's structure from its diffusers config: per level its
-    channels, heads and transformer depth, and whether it has attention."""
-    boc = list(u["block_out_channels"])
-    n = len(boc)
-    heads = u.get("num_attention_heads") or u.get("attention_head_dim", 8)
-    heads = [heads] * n if isinstance(heads, int) else list(heads)
-    depth = u.get("transformer_layers_per_block", 1)
-    depth = [depth] * n if isinstance(depth, int) else list(depth)
-    down_attn = ["CrossAttn" in t for t in u["down_block_types"]]
-    up_attn = ["CrossAttn" in t for t in u["up_block_types"]]
-    return {"channels": boc, "heads": heads, "depth": depth,
-            "down_attn": down_attn, "up_attn": up_attn,
-            "layers": int(u.get("layers_per_block", 2)),
-            "temb": int(u.get("time_embedding_dim") or boc[0] * 4),
-            "ctx": int(u["cross_attention_dim"]),
-            "linear_proj": bool(u.get("use_linear_projection", False)),
-            "text_time": u.get("addition_embed_type") == "text_time"}
-
-
-def unet_layout(u: dict) -> list:
-    p = unet_plan(u)
-    boc, n, temb = p["channels"], len(p["channels"]), p["temb"]
-    out: list = []
-    _conv(out, "conv_in", u["in_channels"], boc[0])
-    _lin(out, "time_embedding.linear_1", boc[0], temb)
-    _lin(out, "time_embedding.linear_2", temb, temb)
-    if p["text_time"]:
-        _lin(out, "add_embedding.linear_1",
-             u["projection_class_embeddings_input_dim"], temb)
-        _lin(out, "add_embedding.linear_2", temb, temb)
-    c_prev = boc[0]
-    for i, c in enumerate(boc):
-        for j in range(p["layers"]):
-            _resnet(out, f"down_blocks.{i}.resnets.{j}",
-                    c_prev if j == 0 else c, c, temb)
-            if p["down_attn"][i]:
-                _transformer(out, f"down_blocks.{i}.attentions.{j}", c,
-                             p["ctx"], p["depth"][i], p["linear_proj"])
-        if i < n - 1:
-            _conv(out, f"down_blocks.{i}.downsamplers.0.conv", c, c)
-        c_prev = c
-    _resnet(out, "mid_block.resnets.0", boc[-1], boc[-1], temb)
-    _transformer(out, "mid_block.attentions.0", boc[-1], p["ctx"],
-                 p["depth"][-1], p["linear_proj"])
-    _resnet(out, "mid_block.resnets.1", boc[-1], boc[-1], temb)
-    rev = boc[::-1]
-    rev_depth = p["depth"][::-1]
-    c_prev = rev[0]
-    for i, c in enumerate(rev):
-        c_in = rev[min(i + 1, n - 1)]
-        for j in range(p["layers"] + 1):
-            skip = c_in if j == p["layers"] else c
-            _resnet(out, f"up_blocks.{i}.resnets.{j}",
-                    (c_prev if j == 0 else c) + skip, c, temb)
-            if p["up_attn"][i]:
-                _transformer(out, f"up_blocks.{i}.attentions.{j}", c,
-                             p["ctx"], rev_depth[i], p["linear_proj"])
-        if i < n - 1:
-            _conv(out, f"up_blocks.{i}.upsamplers.0.conv", c, c)
-        c_prev = c
-    _norm(out, "conv_norm_out", boc[0])
-    _conv(out, "conv_out", boc[0], u["out_channels"])
-    return out
-
-
 def vae_layout(v: dict) -> list:
     chs = list(v["block_out_channels"])
     lc = v["latent_channels"]
@@ -161,8 +82,10 @@ def vae_layout(v: dict) -> list:
     mid("encoder", chs[-1])
     _norm(out, "encoder.conv_norm_out", chs[-1])
     _conv(out, "encoder.conv_out", chs[-1], 2 * lc)
-    _conv(out, "quant_conv", 2 * lc, 2 * lc, k=1)
-    _conv(out, "post_quant_conv", lc, lc, k=1)
+    if v.get("use_quant_conv", True):
+        _conv(out, "quant_conv", 2 * lc, 2 * lc, k=1)
+    if v.get("use_post_quant_conv", True):
+        _conv(out, "post_quant_conv", lc, lc, k=1)
     _conv(out, "decoder.conv_in", lc, chs[-1])
     mid("decoder", chs[-1])
     c_prev = chs[-1]
@@ -207,13 +130,9 @@ def text_towers(config: dict) -> list[str]:
 
 
 def layout(config: dict) -> list:
-    """[(key, shape, kind)] of every tensor, keys prefixed by part."""
-    parts = [("unet", unet_layout(config["unet"])),
-             ("vae", vae_layout(config["vae"]))]
-    parts += [(name, clip_layout(config[name]))
-              for name in text_towers(config)]
-    return [(f"{part}.{key}", shape, kind)
-            for part, entries in parts for key, shape, kind in entries]
+    """[(key, shape, kind)] of every tensor, keys prefixed by part: the
+    ``layout`` of the configuration's family (``family.py``)."""
+    return family.code(config).layout(config)
 
 
 def count(config: dict) -> int:
